@@ -1,0 +1,149 @@
+"""PyTorch port, core: quaternion algebra, segment closed forms and the plain
+propagator against the JAX package on the same numpy inputs (CPU, f32).
+
+Tolerances: 1e-6 abs for single operations (a few f32 ulps of O(1) values,
+since the two frameworks' sin/cos/sqrt may round differently), 1e-5 abs for
+the L = 20 product (those differences accumulate over 20 dependent Hamilton
+products).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from universal_quantum_optimal_control_tpu.core import propagate as jprop
+from universal_quantum_optimal_control_tpu.core import su2 as jsu2
+from universal_quantum_optimal_control_tpu_torch.core import errors as terrors
+from universal_quantum_optimal_control_tpu_torch.core import propagate as tprop
+from universal_quantum_optimal_control_tpu_torch.core import su2 as tsu2
+from universal_quantum_optimal_control_tpu_torch.utils import resolve_device
+
+OP_TOL = 1e-6
+PRODUCT_TOL = 1e-5
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _quats(rng, n):
+    q = rng.standard_normal((n, 4)).astype(np.float32)
+    return q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+
+def _both(fn_name, *args):
+    j = getattr(jsu2, fn_name)(*[jnp.asarray(a) for a in args])
+    t = getattr(tsu2, fn_name)(*[torch.from_numpy(np.array(a)) for a in args])
+    return np.asarray(j), t.numpy()
+
+
+@pytest.mark.parametrize("fn_name", ["quat_multiply", "quat_trace_inner",
+                                     "quat_fidelity"])
+def test_binary_quat_ops_match_jax(fn_name):
+    rng = _rng(0)
+    j, t = _both(fn_name, _quats(rng, 64), _quats(rng, 64))
+    np.testing.assert_allclose(t, j, atol=OP_TOL)
+
+
+@pytest.mark.parametrize("fn_name", ["quat_conj", "quat_normalize"])
+def test_unary_quat_ops_match_jax(fn_name):
+    q = 3.0 * _rng(1).standard_normal((64, 4)).astype(np.float32)
+    j, t = _both(fn_name, q)
+    np.testing.assert_allclose(t, j, atol=OP_TOL)
+
+
+def test_axis_angle_and_rotation_vector_match_jax():
+    rng = _rng(2)
+    axis = rng.standard_normal((64, 3)).astype(np.float32)
+    axis[0] = 0.0  # zero axis → identity
+    angle = rng.uniform(-2 * np.pi, 2 * np.pi, 64).astype(np.float32)
+    j, t = _both("axis_angle_to_quat", axis, angle)
+    np.testing.assert_allclose(t, j, atol=OP_TOL)
+    rv = np.concatenate([axis, angle[:, None]], axis=1)
+    j, t = _both("rotation_vector_to_quat", rv)
+    np.testing.assert_allclose(t, j, atol=OP_TOL)
+
+
+def test_su2_round_trip_matches_jax():
+    q = _quats(_rng(3), 64)
+    j, t = _both("quat_to_su2", q)
+    assert t.dtype == np.complex64
+    np.testing.assert_allclose(t, j, atol=OP_TOL)
+    j2, t2 = _both("su2_to_quat", j)
+    np.testing.assert_allclose(t2, j2, atol=OP_TOL)
+    np.testing.assert_allclose(t2, q, atol=OP_TOL)
+
+
+def _segment_inputs(rng, n=256):
+    return dict(
+        phi=rng.uniform(-np.pi, np.pi, n).astype(np.float32),
+        omega=rng.uniform(-0.5, 1.5, n).astype(np.float32),  # Ω < 0 clamps
+        det=rng.uniform(-1.0, 1.0, n).astype(np.float32),
+        tau=rng.uniform(0.0, 0.6, n).astype(np.float32),
+        delta=rng.standard_normal(n).astype(np.float32),
+        epsilon=(0.05 * rng.standard_normal(n)).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("fn_name,keys", [
+    ("segment_quat", ("phi", "tau", "delta", "epsilon")),
+    ("segment_quat_amp", ("phi", "omega", "tau", "delta", "epsilon")),
+    ("segment_quat_det", ("phi", "omega", "det", "tau", "delta", "epsilon")),
+])
+def test_segment_closed_forms_match_jax(fn_name, keys):
+    x = _segment_inputs(_rng(4))
+    j, t = _both(fn_name, *(x[k] for k in keys))
+    np.testing.assert_allclose(t, j, atol=OP_TOL)
+    np.testing.assert_allclose(np.linalg.norm(t, axis=-1), 1.0, atol=OP_TOL)
+
+
+def mc_inputs(P, B=3, L=20, M=64, seed=5):
+    rng = _rng(seed + P)
+    cols = [rng.uniform(-np.pi, np.pi, (B, L))]
+    if P >= 3:
+        cols.append(rng.uniform(-0.3, 1.5, (B, L)))
+    if P == 4:
+        cols.append(rng.uniform(-1.0, 1.0, (B, L)))
+    cols.append(rng.uniform(0.05, 0.5, (B, L)))
+    pulses = np.stack(cols, axis=-1).astype(np.float32)
+    delta = rng.standard_normal((B, M)).astype(np.float32)
+    eps = (0.05 * rng.standard_normal((B, M))).astype(np.float32)
+    return pulses, delta, eps
+
+
+@pytest.mark.parametrize("P", [2, 3, 4])
+def test_propagate_mc_matches_jax_scan(P):
+    pulses, delta, eps = mc_inputs(P)
+    j = np.asarray(jprop.propagate_mc(jnp.asarray(pulses), jnp.asarray(delta),
+                                      jnp.asarray(eps), method="scan"))
+    t = tprop.propagate_mc(torch.from_numpy(pulses), torch.from_numpy(delta),
+                           torch.from_numpy(eps)).numpy()
+    assert t.shape == (3, 64, 4)
+    np.testing.assert_allclose(t, j, atol=PRODUCT_TOL)
+
+
+def test_propagate_rejects_unknown_pulse_width():
+    with pytest.raises(ValueError, match="parameter count"):
+        tprop.propagate_mc(torch.zeros(1, 2, 5), torch.zeros(1, 3), torch.zeros(1, 3))
+
+
+def test_sample_ore_ple_uses_the_generator():
+    g1 = torch.Generator().manual_seed(11)
+    g2 = torch.Generator().manual_seed(11)
+    d1, e1 = terrors.sample_ore_ple(g1, (4, 50000), delta_std=0.7, epsilon_std=0.05)
+    d2, e2 = terrors.sample_ore_ple(g2, (4, 50000), delta_std=0.7, epsilon_std=0.05)
+    assert torch.equal(d1, d2) and torch.equal(e1, e2)
+    assert d1.shape == e1.shape == (4, 50000) and d1.device.type == "cpu"
+    # independent gaussians of the given stds (5-sigma bounds at n = 2e5)
+    assert abs(float(d1.std()) - 0.7) < 0.01 and abs(float(e1.std()) - 0.05) < 1e-3
+    assert abs(float(torch.corrcoef(torch.stack([d1.flatten(), e1.flatten()]))[0, 1])) < 0.012
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve_device()
+    assert resolve_device("cpu").type == "cpu"

@@ -1,0 +1,15 @@
+from . import pipeline, score_embedding, serialization, universal_transformer  # noqa: F401
+
+from .pipeline import Pipeline, rotation_vector_from_unitary  # noqa: F401
+from .score_embedding import (  # noqa: F401
+    euler_yxy_from_rotation_vector,
+    score_features,
+    score_sequence_from_yxy,
+    sinusoidal_positional_encoding,
+)
+from .serialization import load_params_npz, params_from_jax  # noqa: F401
+from .universal_transformer import (  # noqa: F401
+    UniversalQOCTransformer,
+    normalize_pulse_space,
+    wrap_angle,
+)

@@ -1,0 +1,180 @@
+r"""Universal pulse-synthesis transformer (PyTorch port of
+``models/universal_transformer.py``).
+
+Maps target rotation vectors ``(n_x, n_y, n_z, θ)`` to composite pulse
+sequences ``(B, max_pulses, P)`` through the SCORE embedding and a post-LN
+transformer encoder.  Numerics follow the Flax module so the JAX package's
+weights carry over unchanged:
+
+* parameters are f32; the encoder computes in ``dtype`` (default bf16, as
+  the Flax class) with the weights cast at each call, LayerNorm statistics
+  in f32 with ε = 1e-6, and the head reads the last token in f32;
+* attention scales the query by 1/√head_dim before the scores;
+* the head applies the sigmoid range map, the optional ``base_pulse``
+  blend, relu(τ), the φ offset and the (−π, π] wrap, in that order.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..utils.device import resolve_device
+from .score_embedding import score_features, sinusoidal_positional_encoding
+
+__all__ = ["UniversalQOCTransformer", "EncoderBlock", "normalize_pulse_space",
+           "wrap_angle"]
+
+PulseSpace = Tuple[Tuple[str, Tuple[float, float]], ...]
+
+# physics channel order: φ first (offset and wrap), τ last (relu)
+_CANONICAL_KEY_ORDER = {"phi": 0, "phi1": 0, "phi2": 1,
+                        "omega": 2, "Omega": 2, "delta": 3, "Delta": 3,
+                        "tau": 4, "t": 4}
+
+
+def normalize_pulse_space(pulse_space) -> PulseSpace:
+    """Dict or tuple pulse space → canonical tuple form; recognized control
+    names are reordered into the propagator's (φ…, Ω, Δ, τ) convention."""
+    if isinstance(pulse_space, dict):
+        items = [(k, (float(v[0]), float(v[1]))) for k, v in pulse_space.items()]
+    else:
+        items = [(k, (float(lo), float(hi))) for k, (lo, hi) in pulse_space]
+    if all(k in _CANONICAL_KEY_ORDER for k, _ in items):
+        items.sort(key=lambda kv: _CANONICAL_KEY_ORDER[kv[0]])
+    return tuple(items)
+
+
+def wrap_angle(x: torch.Tensor) -> torch.Tensor:
+    """Wrap to (−π, π]."""
+    return torch.remainder(x + math.pi, 2.0 * math.pi) - math.pi
+
+
+def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+class MultiHeadAttention(nn.Module):
+    """Self-attention with Flax ``MultiHeadDotProductAttention`` numerics.
+
+    ``query/key/value`` map ``d → heads·head_dim`` (Flax kernels
+    ``(d, heads, head_dim)``), ``out`` maps back (Flax ``(heads, head_dim, d)``).
+    """
+
+    def __init__(self, d_model: int, n_heads: int, dropout: float, device):
+        super().__init__()
+        if d_model % n_heads:
+            raise ValueError(f"d_model={d_model} is not divisible by n_heads={n_heads}")
+        self.n_heads = n_heads
+        self.dropout = dropout
+        self.query = nn.Linear(d_model, d_model, device=device)
+        self.key = nn.Linear(d_model, d_model, device=device)
+        self.value = nn.Linear(d_model, d_model, device=device)
+        self.out = nn.Linear(d_model, d_model, device=device)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        B, T, d = x.shape
+        H = self.n_heads
+        Dh = d // H
+        q = _linear(x, self.query, dtype).view(B, T, H, Dh)
+        k = _linear(x, self.key, dtype).view(B, T, H, Dh)
+        v = _linear(x, self.value, dtype).view(B, T, H, Dh)
+        q = q / math.sqrt(Dh)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        weights = torch.softmax(scores, dim=-1)
+        weights = F.dropout(weights, self.dropout, self.training)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(B, T, d)
+        return _linear(ctx, self.out, dtype)
+
+
+class EncoderBlock(nn.Module):
+    """Post-LN encoder block: attention → residual → LN, then
+    FFN(4d, relu) → residual → LN.  Dropout is active only in train mode."""
+
+    def __init__(self, d_model: int, n_heads: int, dropout: float, device):
+        super().__init__()
+        self.dropout = dropout
+        self.attn = MultiHeadAttention(d_model, n_heads, dropout, device)
+        self.ln1 = nn.LayerNorm(d_model, eps=1e-6, device=device)
+        self.dense0 = nn.Linear(d_model, 4 * d_model, device=device)
+        self.dense1 = nn.Linear(4 * d_model, d_model, device=device)
+        self.ln2 = nn.LayerNorm(d_model, eps=1e-6, device=device)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        attn = F.dropout(self.attn(x, dtype), self.dropout, self.training)
+        x = self.ln1((x + attn).float()).to(dtype)
+        h = torch.relu(_linear(x, self.dense0, dtype))
+        h = F.dropout(h, self.dropout, self.training)
+        h = F.dropout(_linear(h, self.dense1, dtype), self.dropout, self.training)
+        return self.ln2((x + h).float()).to(dtype)
+
+
+class UniversalQOCTransformer(nn.Module):
+    """SCORE-embedding transformer pulse generator.
+
+    ``n_layers=None`` means ``4 * max_pulses``.  ``device=None`` builds the
+    parameters on CUDA (and raises where there is none).
+    """
+
+    def __init__(self, num_qubits: int = 1,
+                 pulse_space=(("phi", (-3.15, 3.15)), ("tau", (0.1, 0.5))),
+                 max_pulses: int = 16, d_model: int = 256,
+                 n_layers: Optional[int] = 12, n_heads: int = 4,
+                 dropout: float = 0.1, finetune: bool = False,
+                 middle_convention: str = "angle",
+                 dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__()
+        if num_qubits != 1:
+            raise ValueError(f"num_qubits={num_qubits}: this model is single-qubit")
+        dev = resolve_device(device)
+        self.pulse_space = normalize_pulse_space(pulse_space)
+        self.max_pulses = max_pulses
+        self.finetune = bool(finetune)
+        self.middle_convention = middle_convention
+        self.dtype = dtype
+        n_layers = n_layers if n_layers is not None else 4 * max_pulses
+        P = len(self.pulse_space)
+        self.unitary_proj = nn.Linear(8, d_model, device=dev)
+        self.encoder = nn.ModuleList(
+            EncoderBlock(d_model, n_heads, dropout, dev) for _ in range(n_layers))
+        self.head = nn.Linear(d_model, max_pulses * P, device=dev)
+        self.register_buffer(
+            "pe", sinusoidal_positional_encoding(9, d_model, device=dev),
+            persistent=False)
+        self.register_buffer(
+            "low", torch.tensor([lo for _, (lo, _) in self.pulse_space], device=dev),
+            persistent=False)
+        self.register_buffer(
+            "high", torch.tensor([hi for _, (_, hi) in self.pulse_space], device=dev),
+            persistent=False)
+
+    @property
+    def param_dim(self) -> int:
+        return len(self.pulse_space)
+
+    def forward(self, rotation_vector: torch.Tensor,
+                base_pulse: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``(B, 4)`` rotation vectors → ``(B, max_pulses, P)`` pulses."""
+        dtype = self.dtype
+        tokens, phi_offset = score_features(rotation_vector.float(),
+                                            self.middle_convention)
+        x = _linear(tokens.to(dtype), self.unitary_proj, dtype)
+        x = x + self.pe.to(dtype)[None]
+        for block in self.encoder:
+            x = block(x, dtype)
+
+        logits = self.head(x[:, -1, :].float())
+        pulses = self.low + (self.high - self.low) * torch.sigmoid(
+            logits.view(-1, self.max_pulses, self.param_dim))
+        if self.finetune:
+            if base_pulse is None:
+                raise ValueError("finetune=True requires an explicit base_pulse")
+            pulses = 0.2 * pulses + base_pulse
+
+        tau = torch.relu(pulses[..., -1:])
+        phi = wrap_angle(pulses[..., :1] + phi_offset[:, None, None])
+        return torch.cat([phi, pulses[..., 1:-1], tau], dim=-1)

@@ -1,0 +1,6 @@
+from .propagate_su2 import (  # noqa: F401
+    mean_fidelity_cuda,
+    mean_fidelity_plain,
+    propagate_mc_cuda,
+    propagate_mc_plain,
+)
