@@ -140,10 +140,27 @@ def test_sample_ore_ple_uses_the_generator():
     assert abs(float(torch.corrcoef(torch.stack([d1.flatten(), e1.flatten()]))[0, 1])) < 0.012
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
+    """``resolve_device``, the ``Trainer``, ``build_su2_dataset`` and the
+    training CLI run on CUDA unless given the CPU, and raise where there is
+    no CUDA; none moves to the CPU by itself."""
+    from universal_quantum_optimal_control_tpu_torch.data import build_su2_dataset
+    from universal_quantum_optimal_control_tpu_torch.training import Trainer
+    from universal_quantum_optimal_control_tpu_torch.workloads import universal_single_qubit
+
+    model = torch.nn.Linear(4, 2)
+    gen = torch.Generator().manual_seed(0)
+    argv = ["--num_epoch", "1", "--save_path", str(tmp_path / "run")]
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
     else:
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            resolve_device()
+        for call in (resolve_device, lambda: Trainer(model),
+                     lambda: build_su2_dataset(gen, 16),
+                     lambda: universal_single_qubit.main(argv)):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+        assert not (tmp_path / "run").exists()
     assert resolve_device("cpu").type == "cpu"
+    assert Trainer(model, device="cpu").device.type == "cpu"
+    rv, q = build_su2_dataset(gen, 16, device="cpu")
+    assert rv.device.type == q.device.type == "cpu"

@@ -1,5 +1,6 @@
-"""PyTorch port on a CUDA card: the hand-written kernels B1 and B3 against
-their plain versions, their input checks and their launch counters.
+"""PyTorch port on a CUDA card: the hand-written kernels B1, B2 and B3
+against their plain versions, their input checks and their launch counters,
+and B1's backward (B3 + B2) against autograd through its plain version.
 
 This file imports nothing of JAX, so it also runs where JAX is absent:
 
@@ -7,7 +8,12 @@ This file imports nothing of JAX, so it also runs where JAX is absent:
 
 (``--noconftest``: the suite's conftest configures JAX).  Without a card
 every test skips.  Tolerance 1e-5 abs on quaternions and fidelities at
-L = 7, as ``tests/test_pallas_kernel.py`` holds the JAX kernels.
+L = 7, and rtol = atol = 1e-4 on pulse gradients, rtol 1e-4 / atol 1e-5 on
+dδ and dε, as ``tests/test_pallas_kernel.py`` holds the JAX kernels.  At
+L = 400 the plain f32 version is itself about 1e-3 from an f64 reference
+on dδ and dε (the prefix is rebuilt through up to L products and the
+gradients sum L terms), so there atol is max(that atol, twice the plain f32
+version's own error against f64 on the same inputs).
 """
 
 import math
@@ -73,3 +79,97 @@ def test_cuda_inputs_are_checked_not_converted(card):
         tk.mean_fidelity_cuda(pulses, q_t, delta.t().contiguous().t(), eps)
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
         tk.propagate_mc_cuda(pulses, delta.cpu(), eps)
+
+
+def assert_vjp_close(got, want, exact=None):
+    """``exact``: the plain version in f64, which widens atol to twice the
+    plain f32 version's own error where that is larger."""
+    for i, (a, b, atol) in enumerate(zip(got, want, (1e-4, 1e-5, 1e-5))):
+        if exact is not None:
+            atol = max(atol, 2.0 * float((b.double() - exact[i]).abs().max()))
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=atol)
+
+
+@pytest.mark.parametrize("P", [2, 3, 4])
+@pytest.mark.parametrize("M", [1, 1000])  # ragged: no multiple of the block
+def test_vjp_kernel_matches_plain(card, P, M):
+    pulses, _, delta, eps = inputs(P, M, card)
+    g = torch.randn((3, M, 4), generator=torch.Generator(device=card).manual_seed(P),
+                    device=card)
+    got = tk.propagate_mc_vjp_cuda(pulses, delta, eps, g)
+    torch.cuda.synchronize()
+    assert_vjp_close(got, tk.propagate_mc_vjp_plain(pulses, delta, eps, g))
+
+
+def test_vjp_kernel_long_sequence_opts_in_to_large_shared_memory(card):
+    """L = 400 at P = 4 takes 59 KB of shared memory, above the 48 KB a
+    launch gets without the opt-in attribute."""
+    pulses, _, delta, eps = inputs(4, 1000, card, B=2, L=400)
+    g = torch.randn((2, 1000, 4), generator=torch.Generator(device=card).manual_seed(9),
+                    device=card)
+    got = tk.propagate_mc_vjp_cuda(pulses, delta, eps, g)
+    torch.cuda.synchronize()
+    exact = tk.propagate_mc_vjp_plain(*(t.double() for t in (pulses, delta, eps, g)))
+    assert_vjp_close(got, tk.propagate_mc_vjp_plain(pulses, delta, eps, g), exact)
+
+
+def test_vjp_kernel_past_the_shared_memory_limit_raises(card):
+    """L = 1600 at P = 4 needs 231 KB, past the 227 KB an sm_90 block may
+    opt in to: the launcher's error is raised, nothing is launched or
+    counted, and the next launch is unaffected."""
+    pulses, _, delta, eps = inputs(4, 64, card, B=1, L=1600)
+    g = torch.zeros((1, 64, 4), device=card)
+    before = tk.propagate_mc_vjp_cuda.launches
+    with pytest.raises(RuntimeError, match="propagate_mc_vjp launch failed"):
+        tk.propagate_mc_vjp_cuda(pulses, delta, eps, g)
+    assert tk.propagate_mc_vjp_cuda.launches == before
+    pulses, _, delta, eps = inputs(4, 64, card, B=1)
+    tk.propagate_mc_vjp_cuda(pulses, delta, eps, g)
+    torch.cuda.synchronize()
+    assert tk.propagate_mc_vjp_cuda.launches == before + 1
+
+
+def test_vjp_kernel_at_zero_axis_norm_matches_plain(card):
+    """Ω ≤ 0 with Δ + δ = 0 exactly in the first segment: B2 and the plain
+    version both floor the squared axis norm and give the finite limit."""
+    pulses = torch.tensor([[[0.3, -0.1, 0.3, 0.4], [1.0, 0.8, -0.2, 0.3]]], device=card)
+    delta = torch.tensor([[-0.3, 0.5]], device=card)
+    eps = torch.tensor([[0.01, 0.02]], device=card)
+    g = torch.randn((1, 2, 4), generator=torch.Generator(device=card).manual_seed(0),
+                    device=card)
+    got = tk.propagate_mc_vjp_cuda(pulses, delta, eps, g)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    assert_vjp_close(got, tk.propagate_mc_vjp_plain(pulses, delta, eps, g))
+
+
+def test_vjp_counts_one_launch_and_checks_inputs(card):
+    pulses, _, delta, eps = inputs(2, 256, card)
+    g = torch.zeros((3, 256, 4), device=card)
+    before = tk.propagate_mc_vjp_cuda.launches
+    tk.propagate_mc_vjp_cuda(pulses, delta, eps, g)
+    assert tk.propagate_mc_vjp_cuda.launches == before + 1
+    with pytest.raises(ValueError, match="g must be"):
+        tk.propagate_mc_vjp_cuda(pulses, delta, eps, g[:, :10].contiguous())
+    with pytest.raises(TypeError, match="float32"):
+        tk.propagate_mc_vjp_cuda(pulses, delta, eps, g.double())
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        tk.propagate_mc_vjp_cuda(pulses, delta, eps, g.cpu())
+
+
+@pytest.mark.parametrize("P", [2, 4])
+def test_mean_fidelity_backward_runs_b3_and_b2_once(card, P):
+    pulses, q_t, delta, eps = inputs(P, 1000, card)
+    gbar = torch.rand(3, generator=torch.Generator(device=card).manual_seed(3), device=card)
+    leaves = [t.clone().requires_grad_(True) for t in (pulses, q_t, delta, eps)]
+    counts = (tk.mean_fidelity_cuda.launches, tk.propagate_mc_cuda.launches,
+              tk.propagate_mc_vjp_cuda.launches)
+    f = tk.mean_fidelity_cuda(*leaves)
+    got = torch.autograd.grad(f, leaves, gbar)
+    assert (tk.mean_fidelity_cuda.launches, tk.propagate_mc_cuda.launches,
+            tk.propagate_mc_vjp_cuda.launches) == tuple(c + 1 for c in counts)
+    ref = [t.clone().requires_grad_(True) for t in (pulses, q_t, delta, eps)]
+    want = torch.autograd.grad(tk.mean_fidelity_plain(*ref), ref, gbar)
+    for name, a, b in zip(("pulses", "q_target", "delta", "eps"), got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 if name in ("delta", "eps")
+                                   else 1e-4, msg=name)

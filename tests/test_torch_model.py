@@ -252,9 +252,15 @@ def _imports(path):
             yield node.module
 
 
+TRAINING_HALF = ("training/__init__.py", "training/checkpoint.py", "training/metrics.py",
+                 "training/resume.py", "training/systems.py", "training/trainer.py",
+                 "workloads/__init__.py", "workloads/universal_single_qubit.py")
+
+
 def test_port_imports_nothing_forbidden():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
+    assert {str(p.relative_to(PORT)) for p in files if PORT in p.parents} >= set(TRAINING_HALF)
     for path in files:
         for mod in _imports(path):
             assert not any(mod == f or mod.startswith(f + ".") for f in FORBIDDEN), \
@@ -268,11 +274,14 @@ def test_port_import_loads_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'flax', 'matplotlib')\n"
+        "             if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'matplotlib')\n"
         "             or m.startswith('universal_quantum_optimal_control_tpu.')\n"
         "             or m == 'universal_quantum_optimal_control_tpu')\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "need = ['training.trainer', 'training.systems', 'training.checkpoint',\n"
+        "        'training.resume', 'training.metrics', 'workloads.universal_single_qubit']\n"
+        "missing = [m for m in need if p.__name__ + '.' + m not in sys.modules]\n"
+        "print(bad, missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -283,7 +292,8 @@ def test_packaging_finds_the_port():
     include = tomllib.loads((REPO / "pyproject.toml").read_text())[
         "tool"]["setuptools"]["packages"]["find"]["include"]
     found = set(find_packages(where=str(REPO), include=include))
-    sub = {"core", "ops", "parallel", "models", "data", "demo", "analysis", "utils"}
+    sub = {"core", "ops", "parallel", "models", "data", "demo", "analysis", "utils",
+           "training", "workloads"}
     port = "universal_quantum_optimal_control_tpu_torch"
     assert {port} | {f"{port}.{s}" for s in sub} <= found
 

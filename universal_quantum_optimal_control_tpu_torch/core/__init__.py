@@ -1,4 +1,4 @@
-from . import errors, propagate, su2  # noqa: F401
+from . import errors, objectives, propagate, su2  # noqa: F401
 
 from .errors import sample_ore_ple  # noqa: F401
 from .propagate import propagate_mc, propagate_scan  # noqa: F401

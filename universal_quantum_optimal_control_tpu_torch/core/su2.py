@@ -94,15 +94,28 @@ def segment_quat(phi, tau, delta, epsilon) -> torch.Tensor:
     return torch.stack(comps, dim=-1)
 
 
+def _axis_norm(omega, z):
+    """``‖(Ω cos φ, Ω sin φ, z)‖`` with its square floored at 1e-24.
+
+    The JAX package's XLA path floors the norm itself at 1e-12 after the
+    square root, so its gradient is NaN where Ω ≤ 0 and z = 0 exactly (the
+    square root's derivative at 0), which f32 draws do reach.  Flooring the
+    square, as the TPU's backward kernel does, leaves every value with
+    ‖a‖ ≥ 1e-12 unchanged and gives there the finite derivative
+    ``∂q_z/∂z = ½·τ·(1 + ε)``, the limit of the closed form.
+    """
+    return torch.sqrt(torch.clamp_min(omega * omega + z * z, 1e-24))
+
+
 def segment_quat_amp(phi, omega, tau, delta, epsilon) -> torch.Tensor:
     r"""Amplitude-modulated segment (P = 3), Ω ≤ 0 clamped to 0.
 
         H = ½·(1 + ε)·(Ω·cos φ·σx + Ω·sin φ·σy + δ·σz),   U = exp(−i·H·τ)
     """
     omega = torch.clamp_min(omega, 0.0)
-    anorm = torch.sqrt(omega * omega + delta * delta)
+    anorm = _axis_norm(omega, delta)
     half = 0.5 * tau * (1.0 + epsilon) * anorm
-    s = torch.sin(half) / torch.clamp_min(anorm, 1e-12)
+    s = torch.sin(half) / anorm
     comps = torch.broadcast_tensors(
         torch.cos(half), s * omega * torch.cos(phi), s * omega * torch.sin(phi),
         s * delta)
@@ -119,9 +132,9 @@ def segment_quat_det(phi, omega, det, tau, delta, epsilon) -> torch.Tensor:
     """
     omega = torch.clamp_min(omega, 0.0)
     z = det + delta
-    anorm = torch.sqrt(omega * omega + z * z)
+    anorm = _axis_norm(omega, z)
     half = 0.5 * tau * (1.0 + epsilon) * anorm
-    s = torch.sin(half) / torch.clamp_min(anorm, 1e-12)
+    s = torch.sin(half) / anorm
     comps = torch.broadcast_tensors(
         torch.cos(half), s * omega * torch.cos(phi), s * omega * torch.sin(phi),
         s * z)

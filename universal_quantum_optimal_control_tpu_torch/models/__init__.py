@@ -7,7 +7,11 @@ from .score_embedding import (  # noqa: F401
     score_sequence_from_yxy,
     sinusoidal_positional_encoding,
 )
-from .serialization import load_params_npz, params_from_jax  # noqa: F401
+from .serialization import (  # noqa: F401
+    load_params_npz,
+    params_from_jax,
+    transfer_encoder_params,
+)
 from .universal_transformer import (  # noqa: F401
     UniversalQOCTransformer,
     normalize_pulse_space,

@@ -9,17 +9,19 @@ numpy only: the port never imports JAX to load them.
 :func:`params_from_jax` is the one place that knows both layouts: it turns
 Flax parameters (numpy arrays keyed by those paths) into the
 ``state_dict`` of :class:`.universal_transformer.UniversalQOCTransformer`.
+:func:`transfer_encoder_params` copies the shape-matching blocks of one such
+``state_dict`` into another (the ``--pretrained_encoder`` warm start).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
-__all__ = ["load_params_npz", "params_from_jax"]
+__all__ = ["load_params_npz", "params_from_jax", "transfer_encoder_params"]
 
 _SEP = "//"
 _SCALE_SUFFIX = "!scale"
@@ -90,3 +92,43 @@ def _torch_name(parts, key: str) -> str:
         if len(parts) == 3 and parts[1] in _DENSES and leaf != "scale":
             return f"encoder.{i}.{_DENSES[parts[1]]}.{torch_leaf}"
     raise KeyError(f"unrecognized parameter {key!r}")
+
+
+def _module_of(name: str) -> str:
+    """``encoder.3.attn.query.weight`` → ``encoder.3``; ``head.bias`` → ``head``."""
+    parts = name.split(".")
+    return ".".join(parts[:2]) if parts[0] == "encoder" else parts[0]
+
+
+def transfer_encoder_params(src: Mapping[str, torch.Tensor],
+                            dst: Mapping[str, torch.Tensor],
+                            also: tuple = ()) -> Dict[str, torch.Tensor]:
+    """Copy every shape-matching encoder block of ``src`` into ``dst``
+    (port of the JAX package's ``models/two_qubit.py::transfer_encoder_params``).
+
+    Both are ``state_dict``s of the port's transformer.  A block
+    ``encoder.i`` (or a top-level module named in ``also``, such as
+    ``"unitary_proj"``) is copied whole when ``dst`` has the same parameter
+    names with the same shapes; everything else keeps ``dst``'s values.  As
+    in the JAX package, modules named in ``also`` count toward the transfer,
+    and a transfer of nothing raises.  Returns a new ``state_dict``.
+    """
+    groups: Dict[str, Dict[str, torch.Tensor]] = {}
+    for name, value in src.items():
+        groups.setdefault(_module_of(name), {})[name] = value
+    out = dict(dst)
+    transferred = 0
+    for module, params in groups.items():
+        if not (module.startswith("encoder.") or module in also):
+            continue
+        dst_names = {n for n in dst if _module_of(n) == module}
+        if dst_names == set(params) and all(
+                params[n].shape == dst[n].shape for n in params):
+            for n, v in params.items():
+                out[n] = v.detach().to(dtype=dst[n].dtype, device=dst[n].device).clone()
+            transferred += 1
+    if transferred == 0:
+        raise ValueError(
+            "no encoder blocks transferred — check that d_model/n_heads "
+            "match between the source and destination models")
+    return out

@@ -11,7 +11,13 @@ weights carry over unchanged:
   in f32 with ε = 1e-6, and the head reads the last token in f32;
 * attention scales the query by 1/√head_dim before the scores;
 * the head applies the sigmoid range map, the optional ``base_pulse``
-  blend, relu(τ), the φ offset and the (−π, π] wrap, in that order.
+  blend, relu(τ), the φ offset and the (−π, π] wrap, in that order;
+* dropout follows Flax: keep with probability 1 − p and scale by 1/(1 − p),
+  with one attention-weight mask shared over batch and heads (Flax's
+  ``broadcast_dropout``); its bits come from the ``generator`` passed to
+  ``forward``, so a training run is reproducible from its seed;
+* :meth:`UniversalQOCTransformer.init_like_flax` draws the initial weights
+  from Flax's defaults for training from scratch (serving loads weights).
 """
 
 from __future__ import annotations
@@ -30,6 +36,10 @@ __all__ = ["UniversalQOCTransformer", "EncoderBlock", "normalize_pulse_space",
            "wrap_angle"]
 
 PulseSpace = Tuple[Tuple[str, Tuple[float, float]], ...]
+
+# std of a standard normal truncated to [-2, 2] (Flax's variance_scaling
+# divides the target std by it)
+_TRUNC_STD = 0.87962566103423978
 
 # physics channel order: φ first (offset and wrap), τ last (relu)
 _CANONICAL_KEY_ORDER = {"phi": 0, "phi1": 0, "phi2": 1,
@@ -58,6 +68,17 @@ def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tens
     return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
 
 
+def _dropout(x: torch.Tensor, p: float, training: bool,
+             generator: Optional[torch.Generator], shape=None) -> torch.Tensor:
+    """Flax ``Dropout``: keep with probability 1 − p, scale by 1/(1 − p).
+    ``shape`` broadcasts one mask over the dimensions it sets to 1."""
+    if not training or p == 0.0:
+        return x
+    keep = 1.0 - p
+    mask = torch.rand(shape or x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class MultiHeadAttention(nn.Module):
     """Self-attention with Flax ``MultiHeadDotProductAttention`` numerics.
 
@@ -76,7 +97,8 @@ class MultiHeadAttention(nn.Module):
         self.value = nn.Linear(d_model, d_model, device=device)
         self.out = nn.Linear(d_model, d_model, device=device)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, T, d = x.shape
         H = self.n_heads
         Dh = d // H
@@ -86,7 +108,8 @@ class MultiHeadAttention(nn.Module):
         q = q / math.sqrt(Dh)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
         weights = torch.softmax(scores, dim=-1)
-        weights = F.dropout(weights, self.dropout, self.training)
+        weights = _dropout(weights, self.dropout, self.training, generator,
+                           (1, 1, T, T))
         ctx = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(B, T, d)
         return _linear(ctx, self.out, dtype)
 
@@ -104,12 +127,14 @@ class EncoderBlock(nn.Module):
         self.dense1 = nn.Linear(4 * d_model, d_model, device=device)
         self.ln2 = nn.LayerNorm(d_model, eps=1e-6, device=device)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        attn = F.dropout(self.attn(x, dtype), self.dropout, self.training)
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        p, train = self.dropout, self.training
+        attn = _dropout(self.attn(x, dtype, generator), p, train, generator)
         x = self.ln1((x + attn).float()).to(dtype)
         h = torch.relu(_linear(x, self.dense0, dtype))
-        h = F.dropout(h, self.dropout, self.training)
-        h = F.dropout(_linear(h, self.dense1, dtype), self.dropout, self.training)
+        h = _dropout(h, p, train, generator)
+        h = _dropout(_linear(h, self.dense1, dtype), p, train, generator)
         return self.ln2((x + h).float()).to(dtype)
 
 
@@ -156,16 +181,34 @@ class UniversalQOCTransformer(nn.Module):
     def param_dim(self) -> int:
         return len(self.pulse_space)
 
+    @torch.no_grad()
+    def init_like_flax(self, generator: torch.Generator) -> None:
+        """Re-draw every weight from Flax's defaults, in place: ``Dense`` and
+        attention kernels ``lecun_normal`` (a normal truncated at ±2σ, σ
+        corrected so the drawn std is 1/√fan_in), biases 0, LayerNorm scale
+        1 and bias 0.  ``generator`` lies on the parameters' device."""
+        for module in self.modules():
+            if isinstance(module, nn.Linear):
+                std = 1.0 / math.sqrt(module.in_features) / _TRUNC_STD
+                nn.init.trunc_normal_(module.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                      generator=generator)
+                nn.init.zeros_(module.bias)
+            elif isinstance(module, nn.LayerNorm):
+                nn.init.ones_(module.weight)
+                nn.init.zeros_(module.bias)
+
     def forward(self, rotation_vector: torch.Tensor,
-                base_pulse: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``(B, 4)`` rotation vectors → ``(B, max_pulses, P)`` pulses."""
+                base_pulse: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``(B, 4)`` rotation vectors → ``(B, max_pulses, P)`` pulses.
+        ``generator`` draws the dropout masks in train mode."""
         dtype = self.dtype
         tokens, phi_offset = score_features(rotation_vector.float(),
                                             self.middle_convention)
         x = _linear(tokens.to(dtype), self.unitary_proj, dtype)
         x = x + self.pe.to(dtype)[None]
         for block in self.encoder:
-            x = block(x, dtype)
+            x = block(x, dtype, generator)
 
         logits = self.head(x[:, -1, :].float())
         pulses = self.low + (self.high - self.low) * torch.sigmoid(

@@ -3,4 +3,6 @@ from .propagate_su2 import (  # noqa: F401
     mean_fidelity_plain,
     propagate_mc_cuda,
     propagate_mc_plain,
+    propagate_mc_vjp_cuda,
+    propagate_mc_vjp_plain,
 )

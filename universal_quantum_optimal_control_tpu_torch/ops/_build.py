@@ -95,5 +95,8 @@ def load_library() -> ctypes.CDLL:
             lib.uqoc_su2_mean_fidelity.argtypes = [
                 ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i64, ptr]
             lib.uqoc_su2_mean_fidelity.restype = i32
+            lib.uqoc_su2_propagate_mc_vjp.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i64, ptr]
+            lib.uqoc_su2_propagate_mc_vjp.restype = i32
             _lib = lib
         return _lib

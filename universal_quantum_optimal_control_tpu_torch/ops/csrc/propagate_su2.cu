@@ -1,11 +1,14 @@
 // SU(2) Monte-Carlo propagation kernels for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of the JAX package:
+// Replaces three Pallas TPU kernels of the JAX package:
 //   B3  universal_quantum_optimal_control_tpu/ops/propagate_pallas.py:_prop_kernel
 //       -> propagate_mc_kernel: per-sample product quaternion, (B, M, 4).
 //   B1  universal_quantum_optimal_control_tpu/ops/propagate_pallas.py:_fid_kernel
 //       -> mean_fid_kernel + reduce_partials_kernel: per-target mean
 //          entanglement fidelity F = (4<q, q_t>^2 + 2) / 6, (B,).
+//   B2  universal_quantum_optimal_control_tpu/ops/propagate_pallas_bwd.py:_bwd_kernel
+//       -> propagate_mc_vjp_kernel + reduce_vjp_partials_kernel: the VJP of
+//          B3 with O(1) residuals (see the B2 section below).
 //
 // What bounds them on an H100: arithmetic.  Each (target b, sample m) is an
 // independent chain of L dependent steps: build the closed-form segment
@@ -29,10 +32,10 @@
 //   * no TPU padding: M need not be a multiple of anything, threads past M
 //     are masked by a bounds check.
 //
-// Sincos: both kernels use CUDA's accurate sincosf (compiled without
+// Sincos: all kernels use CUDA's accurate sincosf (compiled without
 // --use_fast_math), which resolves the sign of sin and cos.  B3's quaternions
-// leave the kernel, so a sign-free variant would flip them; B1 uses the same
-// sign-resolved sincosf, so the sign trap cannot arise in either.
+// leave the kernel, so a sign-free variant would flip them; B1 and B2 use the
+// same sign-resolved sincosf, so the sign trap cannot arise in any of them.
 //
 // Reduction (B1): a fixed-order tree inside each block writes one partial
 // per block; a second small kernel sums a target's partials in double, in a
@@ -189,12 +192,238 @@ reduce_partials_kernel(const float* __restrict__ partials, int n,
   if (threadIdx.x == 0) out[b] = static_cast<float>(sums[0] / M);
 }
 
+// ---------------------------------------------------------------------------
+// B2: the VJP of the MC propagator, cotangent g (B, M, 4) ->
+// dpulses (B, L, P), ddelta (B, M), deps (B, M).
+//
+// Math (as the TPU kernel): with Q = L_k o q_k o R_k the product split at
+// segment k, the cotangent of q_k is A_k = conj(L_k) o g o conj(R_k).  The
+// kernel rebuilds Q, then sweeps k = L-1 .. 0 recovering R_k = conj(q_k) o
+// R_{k+1} by inverse products (unit quaternions) and carrying G_k =
+// conj(L_k) o g, updated as G_{k-1} = conj(q_k) o G_k, so it stores no
+// per-segment residual and A_k = G_k o conj(R_k) takes one product.  A_k
+// is chained through the closed-form segment quaternion into the pulse,
+// delta and epsilon cotangents.  The prefix comes from inverse products of
+// the full product, so f32 error grows about linearly in L.
+//
+// What bounds it: arithmetic, as B1.  Per (sample, segment) it does the
+// forward rebuild (one segment and one Hamilton product) and the sweep (the
+// segment again, three Hamilton products: R_k, A_k and the G update, and the
+// chain rule), about four times B1's work, against 24 bytes per sample of
+// input and 8 of output.
+//
+// What the design does about it:
+//   * one thread per (b, m), everything in registers; the pulse row is
+//     staged once per block exactly as B1 stages it;
+//   * dphi, dOmega, dDelta, dtau are sums over the M samples of one target.
+//     Blocks run in no order, so instead of the TPU's sequential SMEM
+//     accumulation: a warp-shuffle sum per segment into this warp's slot of
+//     a shared [warps][L * P] buffer (no __syncthreads inside the L loop), a
+//     fixed-order sum over warps into one partial per block, and a second
+//     kernel that sums a target's block partials in double.  No atomics, so
+//     the result is the same from run to run;
+//   * threads past M carry g = 0, which adds exactly 0 to every sum, and
+//     stay in the shuffles;
+//   * shared memory is the row plus warps * L * P floats (6.4 KB of buffer
+//     at L = 100, P = 2; 51 KB at L = 400, P = 4); above 48 KB the launcher
+//     opts in with cudaFuncSetAttribute.
+//
+// The Omega cotangent is gated on Omega_raw > 0 as the TPU kernel gates it;
+// the staged max(Omega_raw, 0) is > 0 exactly when Omega_raw is.  The axis
+// norm's square is floored at 1e-24, as the plain version floors it
+// (core/su2.py::_axis_norm): where Omega <= 0 and Delta + delta = 0 exactly,
+// which f32 draws do reach, the derivative along z is then the finite limit
+// tau (1 + eps) / 2 of the closed form.  The TPU kernel floors the square at
+// 1e-12, which gives the same limit; B1 and B3 floor the norm at 1e-12 after
+// the square root, which changes no value by more than 1e-12.
+
+constexpr int kWarps = kThreads / 32;
+
+__device__ __forceinline__ Quat conj(const Quat& q) {
+  return {q.w, -q.x, -q.y, -q.z};
+}
+
+// One segment and the intermediates its chain rule reuses.
+struct Segment {
+  Quat q;
+  float tau, om, zax, n, inv, sn, c, s, cphi, sphi;
+};
+
+// n2 / inv2: the P = 2 axis norm sqrt(1 + delta^2) and its inverse, hoisted
+// by the caller (unused at P = 3 / 4).
+template <int P>
+__device__ __forceinline__ Segment segment(const float* row, int L, int k,
+                                           float delta, float eps, float n2,
+                                           float inv2) {
+  Segment g;
+  g.cphi = row[k];
+  g.sphi = row[L + k];
+  g.tau = row[2 * L + k];
+  if (P == 2) {
+    g.om = 1.0f;
+    g.zax = delta;
+    g.n = n2;
+    g.inv = inv2;
+  } else {
+    g.om = row[3 * L + k];
+    g.zax = (P == 4) ? row[4 * L + k] + delta : delta;
+    g.n = sqrtf(fmaxf(g.om * g.om + g.zax * g.zax, 1e-24f));
+    g.inv = 1.0f / g.n;
+  }
+  sincosf(g.tau * (0.5f * (1.0f + eps) * g.n), &g.sn, &g.c);
+  g.s = g.sn * g.inv;
+  const float so = g.s * g.om;
+  g.q = {g.c, so * g.cphi, so * g.sphi, g.s * g.zax};
+  return g;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Floats of the staged pulse row (see stage_row).
+__host__ __device__ inline size_t row_floats(int L, int P) {
+  return static_cast<size_t>(L) * (P == 2 ? 3 : P + 1);
+}
+
+// B2, pass 1: grid (ceil(M / kThreads), B); partials is
+// (B, gridDim.x, L * P), each entry one block's sum over its samples.
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+propagate_mc_vjp_kernel(const float* __restrict__ pulses,
+                        const float* __restrict__ delta,
+                        const float* __restrict__ eps,
+                        const float* __restrict__ g,
+                        float* __restrict__ partials,
+                        float* __restrict__ ddelta,
+                        float* __restrict__ deps, int L, int64_t M) {
+  extern __shared__ float smem[];
+  float* row = smem;
+  float* red = smem + row_floats(L, P);  // [kWarps][L * P]
+  const int b = blockIdx.y;
+  stage_row<P>(pulses, b, L, row);
+  __syncthreads();
+
+  const int64_t m = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const bool active = m < M;
+  const int64_t i = static_cast<int64_t>(b) * M + m;
+  const float d = active ? delta[i] : 0.0f;
+  const float e = active ? eps[i] : 0.0f;
+  // G_k = conj(L_k) o g, starting from g: L_{L-1} is the identity
+  Quat gl = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (active) gl = {g[4 * i], g[4 * i + 1], g[4 * i + 2], g[4 * i + 3]};
+  const float n2 = sqrtf(1.0f + d * d);
+  const float inv2 = 1.0f / n2;
+
+  // forward rebuild of the full product Q = q_L o ... o q_1
+  Quat prod = {1.0f, 0.0f, 0.0f, 0.0f};
+  for (int k = 0; k < L; ++k)
+    prod = hamilton(segment<P>(row, L, k, d, e, n2, inv2).q, prod);
+
+  // reverse sweep
+  const int lp = L * P;
+  float* red_w = red + (threadIdx.x >> 5) * lp;
+  const bool lane0 = (threadIdx.x & 31) == 0;
+  float dd = 0.0f, de = 0.0f;
+  for (int k = L - 1; k >= 0; --k) {
+    const Segment sg = segment<P>(row, L, k, d, e, n2, inv2);
+    const Quat cq = conj(sg.q);
+    const Quat r = hamilton(cq, prod);     // R_k
+    const Quat a = hamilton(gl, conj(r));  // A_k
+    // axy = <A_xy, (cos phi, sin phi)>, proj = <A_vec, axis>
+    const float axy = a.x * sg.cphi + a.y * sg.sphi;
+    const float proj = sg.om * axy + a.z * sg.zax;
+    const float h_tau = 0.5f * (1.0f + e) * sg.n;
+    const float h_eps = 0.5f * sg.tau * sg.n;
+    const float h_del = 0.5f * sg.tau * (1.0f + e) * sg.zax * sg.inv;
+    // dq/dphi = (0, -s Omega sin phi, s Omega cos phi, 0)
+    const float dphi = (sg.s * sg.om) * (a.y * sg.cphi - a.x * sg.sphi);
+    // dq/dtau = (-sin(half) h_tau, cos(half) h_tau / n * axis); eps alike
+    const float dtau = -sg.sn * h_tau * a.w + sg.c * h_tau * sg.inv * proj;
+    de += -sg.sn * h_eps * a.w + sg.c * h_eps * sg.inv * proj;
+    // z axis (z = Delta + delta): shared by delta and, at P = 4, Delta
+    const float ds_del = sg.c * h_del * sg.inv - sg.s * sg.zax * (sg.inv * sg.inv);
+    const float ddel = -sg.sn * h_del * a.w + ds_del * proj + sg.s * a.z;
+    dd += ddel;
+
+    float v[P];
+    v[0] = dphi;
+    v[P - 1] = dtau;
+    if constexpr (P >= 3) {
+      const float h_om = 0.5f * sg.tau * (1.0f + e) * sg.om * sg.inv;
+      const float ds_om = sg.c * h_om * sg.inv - sg.s * sg.om * (sg.inv * sg.inv);
+      const float dom = -sg.sn * h_om * a.w + ds_om * proj + sg.s * axy;
+      v[1] = sg.om > 0.0f ? dom : 0.0f;
+    }
+    if constexpr (P == 4) v[2] = ddel;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const float t = warp_sum(v[p]);
+      if (lane0) red_w[k * P + p] = t;
+    }
+    gl = hamilton(cq, gl);
+    prod = r;
+  }
+  if (active) {
+    ddelta[i] = dd;
+    deps[i] = de;
+  }
+
+  __syncthreads();
+  float* out = partials + (static_cast<int64_t>(b) * gridDim.x + blockIdx.x) * lp;
+  for (int j = threadIdx.x; j < lp; j += kThreads) {
+    float s = 0.0f;
+    for (int w = 0; w < kWarps; ++w) s += red[w * lp + j];
+    out[j] = s;
+  }
+}
+
+// B2, pass 2: grid (ceil(L * P / kThreads), B); dpulses[b, j] = the sum of
+// partials[b, :, j], in double, in block order.
+__global__ void __launch_bounds__(kThreads)
+reduce_vjp_partials_kernel(const float* __restrict__ partials, int nblocks,
+                           int lp, float* __restrict__ dpulses) {
+  const int b = blockIdx.y;
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j >= lp) return;
+  const float* src = partials + static_cast<int64_t>(b) * nblocks * lp + j;
+  double s = 0.0;
+  for (int x = 0; x < nblocks; ++x) s += src[static_cast<int64_t>(x) * lp];
+  dpulses[static_cast<int64_t>(b) * lp + j] = static_cast<float>(s);
+}
+
 inline unsigned int num_blocks(int64_t M) {
   return static_cast<unsigned int>((M + kThreads - 1) / kThreads);
 }
 
-inline size_t row_bytes(int L, int P) {
-  return sizeof(float) * static_cast<size_t>(L) * (P == 2 ? 3 : P + 1);
+inline size_t row_bytes(int L, int P) { return sizeof(float) * row_floats(L, P); }
+
+// Shared memory B2's pass 1 takes: the pulse row and the [warps][L * P]
+// reduction buffer.
+inline size_t vjp_smem_bytes(int L, int P) {
+  return sizeof(float) * (row_floats(L, P) + static_cast<size_t>(kWarps) * L * P);
+}
+
+template <int P>
+cudaError_t launch_vjp(dim3 grid, size_t smem, cudaStream_t s,
+                       const float* pulses, const float* delta,
+                       const float* eps, const float* g, float* partials,
+                       float* ddelta, float* deps, int L, int64_t M) {
+  if (smem > 48 * 1024) {
+    // refused past the card's opt-in limit (227 KB on sm_90)
+    const cudaError_t err = cudaFuncSetAttribute(
+        propagate_mc_vjp_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, so no later launch reports it
+      return err;
+    }
+  }
+  propagate_mc_vjp_kernel<P><<<grid, kThreads, smem, s>>>(
+      pulses, delta, eps, g, partials, ddelta, deps, L, M);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -263,6 +492,42 @@ cudaError_t uqoc_su2_mean_fidelity(const float* pulses, const float* q_target,
   if (err != cudaSuccess) return err;
   reduce_partials_kernel<<<B, kThreads, 0, s>>>(
       partials, static_cast<int>(grid.x), out, M);
+  return cudaGetLastError();
+}
+
+// pulses (B, L, P), delta / eps (B, M), g (B, M, 4),
+// partials (B, uqoc_su2_num_blocks(M), L * P) scratch, dpulses (B, L, P),
+// ddelta / deps (B, M); all f32, contiguous.
+cudaError_t uqoc_su2_propagate_mc_vjp(const float* pulses, const float* delta,
+                                      const float* eps, const float* g,
+                                      float* partials, float* dpulses,
+                                      float* ddelta, float* deps, int B, int L,
+                                      int P, int64_t M, void* stream) {
+  const dim3 grid(num_blocks(M), B);
+  const size_t smem = vjp_smem_bytes(L, P);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (P) {
+    case 2:
+      err = launch_vjp<2>(grid, smem, s, pulses, delta, eps, g, partials,
+                          ddelta, deps, L, M);
+      break;
+    case 3:
+      err = launch_vjp<3>(grid, smem, s, pulses, delta, eps, g, partials,
+                          ddelta, deps, L, M);
+      break;
+    case 4:
+      err = launch_vjp<4>(grid, smem, s, pulses, delta, eps, g, partials,
+                          ddelta, deps, L, M);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
+  const int lp = L * P;
+  const dim3 grid2((lp + kThreads - 1) / kThreads, B);
+  reduce_vjp_partials_kernel<<<grid2, kThreads, 0, s>>>(
+      partials, static_cast<int>(grid.x), lp, dpulses);
   return cudaGetLastError();
 }
 

@@ -2,8 +2,10 @@ r"""Per-target Monte-Carlo objective on one device.
 
 The backend names are the JAX package's, so later slices map 1:1:
 ``"xla"`` is the eager PyTorch path and ``"pallas"`` the hand-written
-kernel B1 (on CPU tensors B1's wrapper computes its plain version).  The
-mesh-sharded objective (``make_mean_fidelity``) is not ported yet.
+kernel B1 (on CPU tensors B1's wrapper computes its plain version).  Both
+are differentiable: ``"xla"`` by autograd, ``"pallas"`` through B1's
+backward (B3 and B2).  The mesh-sharded objective (``make_mean_fidelity``)
+is not ported yet.
 """
 
 from __future__ import annotations
