@@ -1,39 +1,55 @@
 #!/usr/bin/env python3
 r"""Smoke run of the PyTorch port on one CUDA card: build, check, serve,
-score, train, time.
+score, train, and the two-qubit serving path, then time.
 
     python3 chip_smoke.py
 
-Seven phases, each printing its own line with its seconds:
+Ten phases, each printing its own line with its seconds:
 
 1. device: the card, torch and CUDA versions, ``nvidia-smi`` name and power limit;
-2. build: the one ``nvcc`` call that compiles ``ops/csrc/propagate_su2.cu``;
+2. build: one ``nvcc`` call per source, started together
+   (``ops/csrc/propagate_su2.cu``: B1, B2, B3; ``propagate_su4.cu``: B6,
+   B7), with ptxas' registers and spills per kernel;
 3. check: kernels B1 (mean fidelity), B3 (per-sample product) and B2 (the
    VJP of B3) against their plain PyTorch versions on the card, P ∈ {2, 3,
    4}, L ∈ {1, 7, 100}, M ∈ {1000, 2¹⁶}, plus B2 at L = 400, P = 4; and the
    full gradient of B1 (its backward runs B3 and B2) against autograd
    through its plain version;
-4. serve: the ``length_100`` flagship (d512 × 8 layers, 16 heads, L = 100,
+4. check-su4: kernels B7 (SU(4) per-sample product) and B6 (SU(4) mean
+   fidelity) against their plain versions, P ∈ {2, 3, 4 (drive2)},
+   L ∈ {1, 7, 100}, M ∈ {200, 2¹⁴}; at L = 100 also against the plain
+   version in f64;
+5. serve: the ``length_100`` flagship (d512 × 8 layers, 16 heads, L = 100,
    P = 2) from its shipped ``.npz``, in bf16 (as the JAX demo serves) and
    f32, for the 5 named gates plus 3 random targets;
-5. score: E[F] of those pulse tables through B1 at σ_δ = 1.0, ε_std = 0.05,
+6. score: E[F] of those pulse tables through B1 at σ_δ = 1.0, ε_std = 0.05,
    M = 2²⁰ per target, and ``mc_fidelity_estimate`` through B3 on X(π),
    held against the flagship's published X(π) E[F] of 0.9502;
-6. train: the training CLI (``workloads/universal_single_qubit.py``) at the
+7. train: the training CLI (``workloads/universal_single_qubit.py``) at the
    flagship's full width with ``--backend pallas``, batch 200, M = 1000,
    two epochs of 5 steps in each of the three curriculum bands; then one
    step's gradient through ``pallas`` against ``xla`` from the same
    weights and draws, and ms per train step;
-7. time: each kernel at the shape of each path that runs it (B1 and B3
-   serving and training, B2 training) with CUDA events, beside its plain
-   version and its bound; one row of the ``kernels`` line per kernel and
-   path, with that path's launches.
+8. serve-su4: the two-qubit flagship ``two_qubit_d2_kak`` (d512 × 8 layers,
+   16 heads, L = 100, drive2 P = 4, KAK tokens) from its shipped ``.npz``
+   in f32, best-of-ℤ₄ serving of the 5 named gates (20 model inputs; the
+   choice scored by B6), card pulses held against CPU pulses;
+9. score-su4: ``workloads/two_qubit_eval.py::eval_pulse_tables`` through B6
+   at σ_δ ∈ {0, 0.1, 0.2}, M = 20 000, ε_std = 0.05, held against the JAX
+   package's CPU table; then ``analysis/plots_su4.py``'s E[F](σ_δ) sweep
+   (20 σ × 2000) and F(δ₁, δ₂) grid (61²) of CZ through B7, each against
+   its plain version on the card;
+10. time: each kernel at the shape of each path that runs it (B1 and B3
+    serving and training, B2 training, B6 and B7 two-qubit serving) with
+    CUDA events, beside its plain version and its bound; one row of the
+    ``kernels`` line per kernel and path, with that path's launches.
 
-Phases 4–5 are the serving path and phase 6's CLI run the training path;
-the kernels' launch counters are set to 0 just before each and read just
-after, and every kernel of the path must have been launched there.  Any
-failure raises and the run exits nonzero.  The line before the last is the
-card's ``nvidia-smi`` name and power limit; the last line is
+Phases 5–6 are the single-qubit serving path, phase 7's CLI run the
+training path and phases 8–9 the two-qubit serving path; the kernels'
+launch counters are set to 0 just before each and read just after, and
+every kernel of the path must have been launched there.  Any failure
+raises and the run exits nonzero.  The line before the last is the card's
+``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Exits nonzero without a result where
 CUDA is unavailable.
 """
@@ -79,6 +95,39 @@ XPI_TOL = 0.005
 SERVE_TOL = 1e-3  # card f32 vs CPU f32 pulses (φ modulo 2π)
 GRAD_RTOL = 1e-4  # as tests/test_pallas_kernel.py holds the JAX VJP kernel
 TRAIN_GRAD_TOL = 1e-4  # pallas vs xla, relative to the global gradient norm
+
+# SU(4), B6 and B7, per (sample, segment) as counted in propagate_su4.cu's
+# compose(), which forms only what the math needs: A = -iHτ/2⁴ is sparse
+# (12 of its 32 reals are zero) and anti-Hermitian, A² and A⁴ Hermitian, A³
+# anti-Hermitian, so each is formed as an upper triangle from the products
+# that are not zero: 10 (A) + 37 (A², closed form) + 128 (A³ = A²A) + 166
+# (A⁴ = A²A²) + 188 (P, Q) + 448 (P + A⁴Q) + 4 × 480 (squarings, dense) +
+# 480 (W ← U W); per sample 10 (energies, (1 + ε)/2) and, for B6, 134
+# (Tr(U†T), F, the sum).
+SU4_FLOPS_PER_SEGMENT = 3377
+SU4_FLOPS_PER_SAMPLE = 10
+SU4_FLOPS_PER_SAMPLE_FIDELITY = 134
+# the JAX suite's tolerances for its Pallas SU(4) kernels (tests/test_su4_pallas.py:43,
+# :69, :121): products 2e-5, fidelities 1e-5 (2e-5 on drive2); at L = 100 widened to
+# twice the plain f32 version's own error against f64 where that is larger
+SU4_PROD_TOL = 2e-5
+SU4_FID_TOL = {2: 1e-5, 3: 1e-5, 4: 2e-5}
+SU4_SWEEP_TOL = 1e-5  # E[F](σ) means, B7 against plain
+SU4_MC_TOL = 0.005  # σ > 0: different draws, M = 20 000 (slice 1's rule)
+SU4_EXACT_TOL = 1e-3  # σ = 0 (exact) against the JAX package's CPU value
+# The JAX package's table on the CPU, from
+#   JAX_PLATFORMS=cpu python -m universal_quantum_optimal_control_tpu.workloads.two_qubit_eval \
+#       --sigmas 0,0.1,0.2 --monte_carlo 20000 --save_pulses jax_eval.npz
+# (defaults: two_qubit_d2_kak.npz, drive2, KAK tokens, ω_min 0.05, L = 100,
+# best-of-ℤ₄, ε_std 0.05, seed 7), the values of its meta_json:
+# gate → E[F] at σ_δ = 0 (exact), 0.1, 0.2.
+JAX_SU4_TABLE = {
+    "cz": (0.9888486862182617, 0.9826241135597229, 0.9670261740684509),
+    "zz(pi/4)": (0.99638831615448, 0.9918046593666077, 0.9810918569564819),
+    "cnot": (0.989017128944397, 0.9810863137245178, 0.9633392095565796),
+    "iswap": (0.9822724461555481, 0.9560391306877136, 0.9090651869773865),
+    "sqrt_swap": (0.9938800930976868, 0.9852356910705566, 0.9655939936637878),
+}
 
 
 def quat_tol(L: int) -> float:
@@ -202,9 +251,47 @@ def check_mean_fidelity_grad(case, pulses, q_t, delta, eps, gen):
                        grad(mean_fidelity_plain, torch.float64))
 
 
-def wrapped_phi_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    d = torch.remainder(a[..., 0] - b[..., 0] + math.pi, 2 * math.pi) - math.pi
-    return max(float(d.abs().max()), float((a[..., 1:] - b[..., 1:]).abs().max()))
+def wrapped_phi_err(a: torch.Tensor, b: torch.Tensor, angles: int = 1) -> float:
+    """Max |a − b| with the first ``angles`` channels compared modulo 2π."""
+    d = torch.remainder(a[..., :angles] - b[..., :angles] + math.pi, 2 * math.pi) - math.pi
+    return max(float(d.abs().max()), float((a[..., angles:] - b[..., angles:]).abs().max()))
+
+
+def su4_random_inputs(gen, B, L, P, M, dev):
+    """SU(4) pulses (φ, [φ₂,] [Ω,] τ) with some Ω < 0 (the clamp), disorder
+    at σ 0.3 / 0.3 / 0.05 and random unitary targets; P = 4 is drive2."""
+    from universal_quantum_optimal_control_tpu_torch.core.su4 import TwoQubitSystem
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand((B, L), generator=gen, device=dev)
+
+    cols = [u(-math.pi, math.pi)] + ([u(-math.pi, math.pi)] if P == 4 else []) \
+        + ([u(-0.3, 2.0)] if P >= 3 else []) + [u(0.05, 0.6)]
+    pulses = torch.stack(cols, dim=-1).contiguous()
+    d1, d2, ep = (s * torch.randn((B, M), generator=gen, device=dev) for s in (0.3, 0.3, 0.05))
+    z = torch.complex(torch.randn((B, 4, 4), generator=gen, device=dev, dtype=torch.float64),
+                      torch.randn((B, 4, 4), generator=gen, device=dev, dtype=torch.float64))
+    T = torch.linalg.qr(z)[0]
+    return (pulses, T.real.float().contiguous(), T.imag.float().contiguous(), d1, d2, ep,
+            TwoQubitSystem(drive2=P == 4))
+
+
+def max_err(a, b) -> float:
+    """Max |a − b| over a tensor or a (re, im) pair, in f64."""
+    if isinstance(a, tuple):
+        return max(max_err(x, y) for x, y in zip(a, b))
+    return float((a.double() - b.double()).abs().max())
+
+
+def su4_bound(B, L, P, M, fidelity):
+    """B6 (``fidelity``) or B7: reads pulses, δ₁, δ₂, ε (and the target) once;
+    writes (B,) means or the (re, im) products."""
+    per_sample = L * SU4_FLOPS_PER_SEGMENT + SU4_FLOPS_PER_SAMPLE
+    if fidelity:
+        per_sample += SU4_FLOPS_PER_SAMPLE_FIDELITY
+    in_bytes = 4 * (B * L * P + 3 * B * M + (32 * B if fidelity else 0))
+    out_bytes = 4 * B if fidelity else 4 * 32 * B * M
+    return roofline(B * M * per_sample, in_bytes + out_bytes)
 
 
 def main() -> int:
@@ -230,6 +317,16 @@ def main() -> int:
                                                                       TrainConfig, Trainer)
     from universal_quantum_optimal_control_tpu_torch.utils import load_model_params
     from universal_quantum_optimal_control_tpu_torch.workloads import universal_single_qubit
+    from universal_quantum_optimal_control_tpu_torch.analysis import plots_su4
+    from universal_quantum_optimal_control_tpu_torch.core.su4 import fidelity_su4_ri
+    from universal_quantum_optimal_control_tpu_torch.data import z4_representatives
+    from universal_quantum_optimal_control_tpu_torch.demo.app import two_qubit_model_kwargs
+    from universal_quantum_optimal_control_tpu_torch.ops.propagate_su4 import (
+        mean_fidelity_su4_cuda, mean_fidelity_su4_plain, propagate_su4_mc_cuda,
+        propagate_su4_mc_plain)
+    from universal_quantum_optimal_control_tpu_torch.optimizers import named_two_qubit_targets
+    from universal_quantum_optimal_control_tpu_torch.training import SU4System
+    from universal_quantum_optimal_control_tpu_torch.workloads import two_qubit_eval
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -244,13 +341,15 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    built = _build.build_library()
-    _build.load_library()
-    for line in built["log"].splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print("  " + line.strip())
-    phase("build", t0, f"nvcc {'cached' if built['cached'] else 'built'} "
-          f"{built['path']} in {built['seconds']:.2f} s")
+    built = _build.build_libraries()
+    for name, b in built.items():
+        _build.load_library(name)
+        print(f"  {name}: nvcc {'cached' if b['cached'] else 'built'} {b['path']} in "
+              f"{b['seconds']:.2f} s")
+        for line in b["log"].splitlines():
+            if any(k in line for k in ("registers", "Compiling entry", "spill")):
+                print("    " + line.strip())
+    phase("build", t0, f"{len(built)} libraries, one nvcc call each, started together")
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
@@ -302,7 +401,43 @@ def main() -> int:
           f"f64: B2 kernel {worst_g[1]:.3e} / plain {worst_g[2]:.3e}, B1 gradient "
           f"kernel {worst_fg[1]:.3e} / plain {worst_fg[2]:.3e}")
 
-    # 4. serve — the main path starts here: counters to 0
+    # 4. check-su4: B7 and B6 against their plain versions; at L = 100 the
+    # tolerance is the larger of the JAX suite's and twice the plain f32
+    # version's own error against f64 on the same inputs
+    t0 = time.perf_counter()
+    worst_u, worst_f4 = 0.0, 0.0
+    for P in (2, 3, 4):
+        for L in (1, 7, 100):
+            for M in (200, 1 << 14):
+                case = f"P={P} L={L} M={M}"
+                pulses, tr, ti, d1, d2, ep, sys4 = su4_random_inputs(gen, 3, L, P, M, dev)
+                U_k = propagate_su4_mc_cuda(pulses, d1, d2, ep, sys4)
+                F_k = mean_fidelity_su4_cuda(pulses, tr, ti, d1, d2, ep, sys4)
+                U_p = propagate_su4_mc_plain(pulses, d1, d2, ep, sys4)
+                F_p = mean_fidelity_su4_plain(pulses, tr, ti, d1, d2, ep, sys4)
+                torch.cuda.synchronize()
+                err_u, err_f = max_err(U_k, U_p), max_err(F_k, F_p)
+                tol_u, tol_f, e64_u, e64_f = SU4_PROD_TOL, SU4_FID_TOL[P], None, None
+                if L > 7:
+                    args64 = [t.double() for t in (pulses, tr, ti, d1, d2, ep)]
+                    e64_u = max_err(U_p, propagate_su4_mc_plain(*args64[:1], *args64[3:], sys4))
+                    e64_f = max_err(F_p, mean_fidelity_su4_plain(*args64, sys4))
+                    tol_u, tol_f = max(tol_u, 2 * e64_u), max(tol_f, 2 * e64_f)
+                if not err_u <= tol_u:
+                    raise AssertionError(f"B7 {case}: |U kernel - plain| {err_u:.3e} > {tol_u:.2e}")
+                if not err_f <= tol_f:
+                    raise AssertionError(f"B6 {case}: |F kernel - plain| {err_f:.3e} > {tol_f:.2e}")
+                worst_u, worst_f4 = max(worst_u, err_u), max(worst_f4, err_f)
+                vs64 = "" if e64_u is None else (f"; plain vs f64: U {e64_u:.2e}, "
+                                                 f"F {e64_f:.2e}")
+                print(f"  {case}: B7 err {err_u:.2e} (tol {tol_u:.1e})  B6 err {err_f:.2e} "
+                      f"(tol {tol_f:.1e}){vs64}")
+    phase("check-su4", t0, f"18 cases; worst B7 {worst_u:.3e}, worst B6 {worst_f4:.3e} "
+          f"against plain (tol {SU4_PROD_TOL:.0e} / {SU4_FID_TOL[2]:.0e}, "
+          f"{SU4_FID_TOL[4]:.0e} drive2; at L = 100 max of those and 2× the plain f32 "
+          f"error against f64)")
+
+    # 5. serve — the main path starts here: counters to 0
     mean_fidelity_cuda.launches = 0
     propagate_mc_cuda.launches = 0
     t0 = time.perf_counter()
@@ -348,7 +483,7 @@ def main() -> int:
     phase("serve", t0, f"length_100 bf16 + f32, 8 targets; card f32 vs CPU f32 "
           f"{serve_err:.2e} (tol {SERVE_TOL:.0e})")
 
-    # 5. score
+    # 6. score
     t0 = time.perf_counter()
     q_t = rotation_vector_to_quat(rv).contiguous()
     M_score = 1 << 20
@@ -380,7 +515,7 @@ def main() -> int:
           f"published {XPI_PUBLISHED}; mc_fidelity_estimate {mc_mean:.5f} ± "
           f"{mc_se:.5f} (M=2^18); launches {serve_launches}")
 
-    # 6. train — the training path starts here: counters to 0
+    # 7. train — the training path starts here: counters to 0
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         save = Path(tmp) / "run"
@@ -483,18 +618,142 @@ def main() -> int:
     phase("train", t0, f"ms per train step at full width, batch 200, M = 1000: pallas "
           f"{step_ms['pallas']:.2f}, xla {step_ms['xla']:.2f}; launches {train_launches}")
 
-    # 7. time each kernel at each path's shape: one row per (kernel, path),
+    # 8. serve-su4 — the two-qubit serving path starts here: counters to 0
+    mean_fidelity_su4_cuda.launches = 0
+    propagate_su4_mc_cuda.launches = 0
+    t0 = time.perf_counter()
+    ckpt, kw4 = two_qubit_model_kwargs("two_qubit_d2_kak")
+    gates4 = named_two_qubit_targets()
+    U4 = np.stack(list(gates4.values()))                    # (5, 4, 4) complex
+    reps = np.stack([z4_representatives(u) for u in U4]).reshape(20, 4, 4)
+    packed20 = SU4System.pack_target(reps).to(dev)
+    t1 = time.perf_counter()
+    model4 = two_qubit_eval.load_two_qubit_model(ckpt, device=dev, **kw4)
+    torch.cuda.synchronize()
+    t_load4 = time.perf_counter() - t1
+    inputs20 = two_qubit_eval.model_inputs(packed20, kw4["kak_tokens"])
+    with torch.no_grad():
+        raw20 = model4(inputs20)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(5):
+            raw20 = model4(inputs20)
+        torch.cuda.synchronize()
+    t_batch4 = (time.perf_counter() - t1) / 5
+    if tuple(raw20.shape) != (20, 100, 4) or not bool(torch.isfinite(raw20).all()):
+        raise AssertionError(f"two-qubit pulses {tuple(raw20.shape)}, finite "
+                             f"{bool(torch.isfinite(raw20).all())}")
+    if not bool(((raw20[..., 0] > -math.pi) & (raw20[..., 0] <= math.pi)).all()):
+        raise AssertionError("two-qubit phi1 outside (-pi, pi]")
+    if not bool(((raw20[..., 2] >= 0.05 - 1e-6) & (raw20[..., 3] >= 0.1 - 1e-6)).all()):
+        raise AssertionError("two-qubit Omega < omega_min or tau < 0.1")
+    sys4 = SU4System(drive2=True, backend="pallas")
+    t1 = time.perf_counter()
+    best4 = two_qubit_eval.best_phase_pulses(ckpt, U4, sys4, device=dev, **kw4).contiguous()
+    torch.cuda.synchronize()
+    t_best4 = time.perf_counter() - t1
+    cpu_raw20 = two_qubit_eval.model_gate_pulses(ckpt, packed20.cpu(), **kw4)
+    cpu_best4 = two_qubit_eval.best_phase_pulses(ckpt, U4, sys4, device="cpu", **kw4)
+    serve4_err = wrapped_phi_err(raw20.cpu(), cpu_raw20, angles=2)
+    best4_err = wrapped_phi_err(best4.cpu(), cpu_best4, angles=2)
+    if not serve4_err <= SERVE_TOL:
+        raise AssertionError(f"card f32 two-qubit pulses vs CPU f32: {serve4_err:.3e} > "
+                             f"{SERVE_TOL}")
+    if not best4_err <= SERVE_TOL:
+        raise AssertionError(f"best-of-Z4 choice differs between card and CPU: "
+                             f"{best4_err:.3e}")
+    phase("serve-su4", t0, f"two_qubit_d2_kak f32: load {t_load4:.2f} s, "
+          f"{1e3 * t_batch4:.2f} ms per batch of 20 (5 gates × 4 Z4 representatives), "
+          f"best_phase_pulses {t_best4:.2f} s (load + KAK tokens + model + B6); card vs "
+          f"CPU pulses {serve4_err:.2e}, best choice {best4_err:.2e} (tol {SERVE_TOL:.0e})")
+
+    # 9. score-su4: the named-gate table through B6, then the sweep and the
+    # grid of CZ through B7
+    t0 = time.perf_counter()
+    gates_packed = SU4System.pack_target(U4).to(dev)
+    sigmas4 = [0.0, 0.1, 0.2]
+    table4 = two_qubit_eval.eval_pulse_tables(best4, gates_packed, sigmas4,
+                                              monte_carlo=20_000, epsilon_std=0.05,
+                                              system=sys4)
+    for i, g in enumerate(gates4):
+        ref = JAX_SU4_TABLE[g]
+        print(f"  {g}: E[F] " + " ".join(f"{v:.5f}" for v in table4[i]) + "  JAX CPU "
+              + " ".join(f"{v:.5f}" for v in ref))
+        if not abs(table4[i, 0] - ref[0]) <= SU4_EXACT_TOL:
+            raise AssertionError(f"{g} sigma=0: {table4[i, 0]:.5f} vs JAX {ref[0]:.5f}")
+        for k in (1, 2):
+            if not abs(table4[i, k] - ref[k]) <= SU4_MC_TOL:
+                raise AssertionError(f"{g} sigma={sigmas4[k]}: {table4[i, k]:.5f} vs JAX "
+                                     f"{ref[k]:.5f} (tol {SU4_MC_TOL})")
+    exact_err = float(np.abs(table4[:, 0] - [JAX_SU4_TABLE[g][0] for g in gates4]).max())
+    mc_err = float(np.abs(table4[:, 1:] - [JAX_SU4_TABLE[g][1:] for g in gates4]).max())
+    # E[F](σ) of CZ: 20 σ × 2000 samples through B7, against the plain version
+    cz_pulses = best4[:1].contiguous()
+    stds = np.arange(1, 21) * 0.05
+    _, sweep_mean, sweep_se = plots_su4.fidelity_by_std_su4(
+        best4[0], U4[0], sys4.system, stds=stds, monte_carlo=2000,
+        generator=torch.Generator(device=dev).manual_seed(2028), device=dev)
+    n1, n2, ne = plots_su4._sweep_draws(torch.Generator(device=dev).manual_seed(2028),
+                                        len(stds), 2000, 0.05)
+    st = torch.as_tensor(stds, dtype=torch.float32, device=dev)[:, None]
+    sweep_d1 = (n1 * st).reshape(1, -1).contiguous()
+    sweep_d2 = (n2 * st).reshape(1, -1).contiguous()
+    sweep_e = ne.reshape(1, -1).contiguous()
+    cz_r, cz_i = plots_su4._as_packed(U4[0], dev)
+    Up = propagate_su4_mc_plain(cz_pulses, sweep_d1, sweep_d2, sweep_e, sys4.system)
+    sweep_plain = fidelity_su4_ri(Up[0][0], Up[1][0], cz_r, cz_i).reshape(len(stds), -1).mean(1)
+    sweep_err = float(np.abs(sweep_mean - sweep_plain.cpu().numpy()).max())
+    if not sweep_err <= SU4_SWEEP_TOL:
+        raise AssertionError(f"E[F](sigma) sweep, B7 vs plain: {sweep_err:.3e} > {SU4_SWEEP_TOL}")
+    if not (0.0 < sweep_mean.min() and sweep_mean.max() <= 1.0
+            and sweep_mean[-1] < sweep_mean[0]):
+        raise AssertionError(f"E[F](sigma) outside (0, 1] or not lower at sigma 1.0: "
+                             f"{sweep_mean}")
+    # F(δ₁, δ₂) of CZ on a 61² grid through B7, against the plain version
+    dg, grid_F = plots_su4.fidelity_grid_su4(best4[0], U4[0], sys4.system, n_delta=61,
+                                             device=dev)
+    dgt = torch.as_tensor(dg, device=dev)
+    gd1, gd2 = (x.reshape(1, -1).contiguous() for x in torch.meshgrid(dgt, dgt, indexing="ij"))
+    grid_plain = {}
+    for dt in (torch.float32, torch.float64):
+        Ug = propagate_su4_mc_plain(cz_pulses.to(dt), gd1.to(dt), gd2.to(dt),
+                                    torch.zeros_like(gd1, dtype=dt), sys4.system)
+        grid_plain[dt] = fidelity_su4_ri(Ug[0][0], Ug[1][0], cz_r.to(dt),
+                                         cz_i.to(dt)).reshape(61, 61).cpu().numpy()
+    grid_tol = max(SU4_PROD_TOL, 2 * float(np.abs(grid_plain[torch.float32]
+                                                  - grid_plain[torch.float64]).max()))
+    grid_err = float(np.abs(grid_F - grid_plain[torch.float32]).max())
+    if not grid_err <= grid_tol:
+        raise AssertionError(f"F(delta1, delta2) grid, B7 vs plain: {grid_err:.3e} > {grid_tol:.2e}")
+    su4_launches = {"B6": mean_fidelity_su4_cuda.launches, "B7": propagate_su4_mc_cuda.launches}
+    if min(su4_launches.values()) < 1:
+        raise AssertionError(f"a kernel was not launched on the two-qubit serving path: "
+                             f"{su4_launches}")
+    print(f"  CZ E[F](sigma) at sigma 0.05 / 0.5 / 1.0: {sweep_mean[0]:.5f} / "
+          f"{sweep_mean[9]:.5f} / {sweep_mean[19]:.5f} (SE {sweep_se[19]:.5f}); grid F at "
+          f"the centre {grid_F[30, 30]:.5f}, corner {grid_F[0, 0]:.5f}")
+    phase("score-su4", t0, f"sigma=0 within {exact_err:.2e} of the JAX CPU table (tol "
+          f"{SU4_EXACT_TOL:.0e}), sigma 0.1/0.2 within {mc_err:.2e} (tol {SU4_MC_TOL}); "
+          f"sweep B7 vs plain {sweep_err:.2e} (tol {SU4_SWEEP_TOL:.0e}), grid {grid_err:.2e} "
+          f"(tol {grid_tol:.1e}); launches {su4_launches}")
+
+    # 10. time each kernel at each path's shape: one row per (kernel, path),
     # its launches those of that path's run
     t0 = time.perf_counter()
-    src = "universal_quantum_optimal_control_tpu_torch/ops/csrc/propagate_su2.cu"
-    names = {"B1": ("mean_fidelity_cuda (B1)", "ops/propagate_pallas.py:252"),
-             "B2": ("propagate_mc_vjp_cuda (B2)", "ops/propagate_pallas_bwd.py:74"),
-             "B3": ("propagate_mc_cuda (B3)", "ops/propagate_pallas.py:240")}
-    launches = {"serve": serve_launches, "train": train_launches}
+    csrc = "universal_quantum_optimal_control_tpu_torch/ops/csrc/"
+    names = {"B1": ("mean_fidelity_cuda (B1)", "ops/propagate_pallas.py:252", "propagate_su2.cu"),
+             "B2": ("propagate_mc_vjp_cuda (B2)", "ops/propagate_pallas_bwd.py:74",
+                    "propagate_su2.cu"),
+             "B3": ("propagate_mc_cuda (B3)", "ops/propagate_pallas.py:240", "propagate_su2.cu"),
+             "B6": ("mean_fidelity_su4_cuda (B6)", "ops/propagate_su4_pallas.py:226",
+                    "propagate_su4.cu"),
+             "B7": ("propagate_su4_mc_cuda (B7)", "ops/propagate_su4_pallas.py:215",
+                    "propagate_su4.cu")}
+    launches = {"serve": serve_launches, "train": train_launches, "serve-su4": su4_launches}
 
     def row(kid, path, shape, err, ms, plain_ms, bound_):
-        name, where = names[kid]
-        return {"name": name, "route": "cuda", "source": src,
+        name, where, src = names[kid]
+        return {"name": name, "route": "cuda", "source": csrc + src,
                 "replaces": f"universal_quantum_optimal_control_tpu/{where}",
                 "launches": launches[path][kid], "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_[0], "bound_by": bound_[1],
@@ -548,8 +807,33 @@ def main() -> int:
                    vjp_bound(Bt, Lt, Pt, Mt))
     p1 = pulses[:1].contiguous()
     d1, e1 = delta[:1, :1 << 18].contiguous(), eps[:1, :1 << 18].contiguous()
+    # B6 at the named-gate table's shape (5 gates, σ_δ = 0.2 draws) and B7 at
+    # the sweep's, each against its plain version (L = 100 tolerance rule)
+    n4 = sys4.sample_errors(torch.Generator(device=dev).manual_seed(7), (5, 20_000), 1.0, 1.0)
+    b6_in = (best4, gates_packed[:, 0].contiguous(), gates_packed[:, 1].contiguous(),
+             n4[0] * 0.2, n4[1] * 0.2, n4[2] * 0.05)
+    b7_in = (cz_pulses, sweep_d1, sweep_d2, sweep_e)
+    b6_k, b6_p = mean_fidelity_su4_cuda(*b6_in, sys4.system), mean_fidelity_su4_plain(*b6_in, sys4.system)
+    b7_k, b7_p = propagate_su4_mc_cuda(*b7_in, sys4.system), propagate_su4_mc_plain(*b7_in, sys4.system)
+    b6_err, b7_err = max_err(b6_k, b6_p), max_err(b7_k, b7_p)
+    b6_tol = max(SU4_FID_TOL[4], 2 * max_err(b6_p, mean_fidelity_su4_plain(
+        *(t.double() for t in b6_in), sys4.system)))
+    b7_tol = max(SU4_PROD_TOL, 2 * max_err(b7_p, propagate_su4_mc_plain(
+        *(t.double() for t in b7_in), sys4.system)))
+    if not (b6_err <= b6_tol and b7_err <= b7_tol):
+        raise AssertionError(f"at the two-qubit serving shapes: B6 {b6_err:.3e} (tol "
+                             f"{b6_tol:.2e}), B7 {b7_err:.3e} (tol {b7_tol:.2e})")
+    b6_row = row("B6", "serve-su4", (5, 100, 4, 20_000), b6_err,
+                 time_ms(lambda: mean_fidelity_su4_cuda(*b6_in, sys4.system), 20),
+                 time_ms(lambda: mean_fidelity_su4_plain(*b6_in, sys4.system), 3),
+                 su4_bound(5, 100, 4, 20_000, fidelity=True))
+    b7_row = row("B7", "serve-su4", (1, 100, 4, sweep_d1.shape[1]), b7_err,
+                 time_ms(lambda: propagate_su4_mc_cuda(*b7_in, sys4.system), 20),
+                 time_ms(lambda: propagate_su4_mc_plain(*b7_in, sys4.system), 3),
+                 su4_bound(1, 100, 4, sweep_d1.shape[1], fidelity=False))
     kernels = [fid_row("serve", pulses, q_t, delta, eps, 20), b1_train, b2_train,
-               prop_row("serve", p1, d1, e1, 20), prop_row("train", pt, dt_, et_, 50)]
+               prop_row("serve", p1, d1, e1, 20), prop_row("train", pt, dt_, et_, 50),
+               b6_row, b7_row]
     for k in kernels:
         print(f"  {k['name']} [{k['path']}] {k['shape']}: {k['ms']:.4f} ms, plain "
               f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "

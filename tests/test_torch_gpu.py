@@ -1,6 +1,7 @@
-"""PyTorch port on a CUDA card: the hand-written kernels B1, B2 and B3
-against their plain versions, their input checks and their launch counters,
-and B1's backward (B3 + B2) against autograd through its plain version.
+"""PyTorch port on a CUDA card: the hand-written kernels B1, B2, B3, B6 and
+B7 against their plain versions, their input checks and their launch
+counters, and B1's backward (B3 + B2) against autograd through its plain
+version.
 
 This file imports nothing of JAX, so it also runs where JAX is absent:
 
@@ -21,7 +22,9 @@ import math
 import pytest
 import torch
 
+from universal_quantum_optimal_control_tpu_torch.core import su4
 from universal_quantum_optimal_control_tpu_torch.ops import propagate_su2 as tk
+from universal_quantum_optimal_control_tpu_torch.ops import propagate_su4 as t4
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-5
@@ -173,3 +176,67 @@ def test_mean_fidelity_backward_runs_b3_and_b2_once(card, P):
     for name, a, b in zip(("pulses", "q_target", "delta", "eps"), got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 if name in ("delta", "eps")
                                    else 1e-4, msg=name)
+
+
+# SU(4): kernels B6 (mean fidelity) and B7 (per-sample product) against their
+# plain versions, at the JAX suite's tolerances for its Pallas twins
+# (tests/test_su4_pallas.py): products 2e-5, fidelities 1e-5 (2e-5 drive2).
+
+SU4_FID_TOL = {2: 1e-5, 3: 1e-5, 4: 2e-5}
+
+
+def su4_inputs(P, M, dev, B=3, L=7, seed=0):
+    g = torch.Generator(device=dev).manual_seed(100 + seed + P)
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand((B, L), generator=g, device=dev)
+
+    cols = [u(-3.1, 3.1)] + ([u(-3.1, 3.1)] if P == 4 else []) \
+        + ([u(-0.3, 2.0)] if P >= 3 else []) + [u(0.05, 0.6)]
+    pulses = torch.stack(cols, dim=-1).contiguous()
+    d1, d2, ep = (s * torch.randn((B, M), generator=g, device=dev) for s in (0.3, 0.3, 0.05))
+    z = torch.complex(torch.randn((B, 4, 4), generator=g, device=dev, dtype=torch.float64),
+                      torch.randn((B, 4, 4), generator=g, device=dev, dtype=torch.float64))
+    T = torch.linalg.qr(z)[0]
+    tr, ti = T.real.float().contiguous(), T.imag.float().contiguous()
+    return pulses, tr, ti, d1, d2, ep, su4.TwoQubitSystem(drive2=P == 4)
+
+
+@pytest.mark.parametrize("P", [2, 3, 4])
+@pytest.mark.parametrize("M", [1, 200])  # ragged: no multiple of the block
+def test_su4_kernels_match_plain(card, P, M):
+    pulses, tr, ti, d1, d2, ep, sys_ = su4_inputs(P, M, card)
+    Ur, Ui = t4.propagate_su4_mc_cuda(pulses, d1, d2, ep, sys_)
+    F = t4.mean_fidelity_su4_cuda(pulses, tr, ti, d1, d2, ep, sys_)
+    torch.cuda.synchronize()
+    Ur_p, Ui_p = t4.propagate_su4_mc_plain(pulses, d1, d2, ep, sys_)
+    torch.testing.assert_close(Ur, Ur_p, atol=2e-5, rtol=0)
+    torch.testing.assert_close(Ui, Ui_p, atol=2e-5, rtol=0)
+    torch.testing.assert_close(F, t4.mean_fidelity_su4_plain(pulses, tr, ti, d1, d2, ep, sys_),
+                               atol=SU4_FID_TOL[P], rtol=0)
+
+
+def test_su4_each_call_counts_one_launch(card):
+    pulses, tr, ti, d1, d2, ep, sys_ = su4_inputs(4, 256, card)
+    before = (t4.propagate_su4_mc_cuda.launches, t4.mean_fidelity_su4_cuda.launches)
+    t4.propagate_su4_mc_cuda(pulses, d1, d2, ep, sys_)
+    t4.mean_fidelity_su4_cuda(pulses, tr, ti, d1, d2, ep, sys_)
+    assert (t4.propagate_su4_mc_cuda.launches, t4.mean_fidelity_su4_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+def test_su4_inputs_are_checked_not_converted(card):
+    pulses, tr, ti, d1, d2, ep, sys_ = su4_inputs(3, 64, card)
+    pulses4 = su4_inputs(4, 64, card)[0]
+    before = (t4.propagate_su4_mc_cuda.launches, t4.mean_fidelity_su4_cuda.launches)
+    with pytest.raises(ValueError, match="drive2 expects 4-parameter"):
+        t4.propagate_su4_mc_cuda(pulses, d1, d2, ep, sys_._replace(drive2=True))
+    with pytest.raises(ValueError, match="require drive2"):
+        t4.mean_fidelity_su4_cuda(pulses4, tr, ti, d1, d2, ep, sys_)
+    with pytest.raises(TypeError, match="float32"):
+        t4.propagate_su4_mc_cuda(pulses, d1.double(), d2, ep, sys_)
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        t4.mean_fidelity_su4_cuda(pulses, tr.cpu(), ti, d1, d2, ep, sys_)
+    with pytest.raises(NotImplementedError, match="A.14"):
+        t4.mean_fidelity_su4_cuda(pulses.clone().requires_grad_(True), tr, ti, d1, d2, ep, sys_)
+    assert (t4.propagate_su4_mc_cuda.launches, t4.mean_fidelity_su4_cuda.launches) == before

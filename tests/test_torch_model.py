@@ -217,6 +217,35 @@ def test_flagship_expected_fidelity_matches_jax(flagship):
                                atol=1e-4)
 
 
+@pytest.mark.artifacts
+def test_bf16_served_expected_fidelity_matches_jax_bf16():
+    """The demo serves ``length_100`` in bf16 (as the JAX demo does): each
+    package's bf16 pulses, scored by its plain version on the same draws
+    (σ_δ = 1, ε_std = 0.05, M = 2¹⁴), give the same E[F] within 1e-4 on the
+    5 named gates and 3 seeded random targets.  The pulses themselves differ
+    by up to ~1e-2 rad: bf16 rounds at other places in the two frameworks,
+    and the average over disorder damps that."""
+    spec = japp.MODEL_VARIANTS["length_100"]
+    mp = jload_config(spec["config"])
+    mp["pulse_space"] = jnormalize(mp["pulse_space"])
+    mp["finetune"] = False
+    jm = JModel(**mp, dtype=jnp.bfloat16)
+    rv = rotation_vectors(n=3, seed=11)[:8]  # 3 random, then the 5 named
+    target = jax.jit(jm.init)(jax.random.PRNGKey(0), rv[:1])
+    jp = np.asarray(JPipeline(jm, jload_npz(spec["checkpoint"], target))(rv))
+    tp = tapp.load_pipeline("length_100", device="cpu", dtype=torch.bfloat16)(rv).numpy()
+    rng = np.random.default_rng(12)
+    delta = rng.standard_normal((8, 1 << 14)).astype(np.float32)
+    eps = (0.05 * rng.standard_normal((8, 1 << 14))).astype(np.float32)
+    qt = rotation_vector_to_quat(torch.from_numpy(rv))
+    j = np.asarray(jmc.mean_fidelity_local(jnp.asarray(jp), jnp.asarray(qt.numpy()),
+                                           jnp.asarray(delta), jnp.asarray(eps)))
+    t = mean_fidelity_local(torch.from_numpy(tp), qt, torch.from_numpy(delta),
+                            torch.from_numpy(eps), backend="xla").numpy()
+    np.testing.assert_allclose(t, j, atol=1e-4)
+    assert np.all((t > 0.5) & (t <= 1.0))
+
+
 def test_mc_fidelity_estimate_runs_on_cpu():
     pulses = np.stack([np.full(8, 0.0), np.full(8, np.pi / 8)], -1).astype(np.float32)
     mean, se = tplots.mc_fidelity_estimate(pulses, np.asarray([0, 1.0, 0, 0]),
@@ -255,12 +284,17 @@ def _imports(path):
 TRAINING_HALF = ("training/__init__.py", "training/checkpoint.py", "training/metrics.py",
                  "training/resume.py", "training/systems.py", "training/trainer.py",
                  "workloads/__init__.py", "workloads/universal_single_qubit.py")
+TWO_QUBIT_SERVING = ("core/su4.py", "ops/propagate_su4.py", "data/su4_targets.py",
+                     "models/two_qubit.py", "optimizers/__init__.py",
+                     "optimizers/two_qubit_grape.py", "workloads/two_qubit_eval.py",
+                     "analysis/plots_su4.py")
 
 
 def test_port_imports_nothing_forbidden():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
-    assert {str(p.relative_to(PORT)) for p in files if PORT in p.parents} >= set(TRAINING_HALF)
+    assert {str(p.relative_to(PORT)) for p in files if PORT in p.parents} >= \
+        set(TRAINING_HALF) | set(TWO_QUBIT_SERVING)
     for path in files:
         for mod in _imports(path):
             assert not any(mod == f or mod.startswith(f + ".") for f in FORBIDDEN), \
@@ -278,7 +312,10 @@ def test_port_import_loads_no_jax():
         "             or m.startswith('universal_quantum_optimal_control_tpu.')\n"
         "             or m == 'universal_quantum_optimal_control_tpu')\n"
         "need = ['training.trainer', 'training.systems', 'training.checkpoint',\n"
-        "        'training.resume', 'training.metrics', 'workloads.universal_single_qubit']\n"
+        "        'training.resume', 'training.metrics', 'workloads.universal_single_qubit',\n"
+        "        'core.su4', 'ops.propagate_su4', 'data.su4_targets', 'models.two_qubit',\n"
+        "        'optimizers.two_qubit_grape', 'workloads.two_qubit_eval',\n"
+        "        'analysis.plots_su4']\n"
         "missing = [m for m in need if p.__name__ + '.' + m not in sys.modules]\n"
         "print(bad, missing)\n"
         "sys.exit(1 if bad or missing else 0)\n")
@@ -293,7 +330,7 @@ def test_packaging_finds_the_port():
         "tool"]["setuptools"]["packages"]["find"]["include"]
     found = set(find_packages(where=str(REPO), include=include))
     sub = {"core", "ops", "parallel", "models", "data", "demo", "analysis", "utils",
-           "training", "workloads"}
+           "training", "workloads", "optimizers"}
     port = "universal_quantum_optimal_control_tpu_torch"
     assert {port} | {f"{port}.{s}" for s in sub} <= found
 

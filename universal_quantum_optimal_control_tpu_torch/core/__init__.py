@@ -1,4 +1,4 @@
-from . import errors, objectives, propagate, su2  # noqa: F401
+from . import errors, objectives, propagate, su2, su4  # noqa: F401
 
 from .errors import sample_ore_ple  # noqa: F401
 from .propagate import propagate_mc, propagate_scan  # noqa: F401
@@ -14,4 +14,10 @@ from .su2 import (  # noqa: F401
     segment_quat_amp,
     segment_quat_det,
     su2_to_quat,
+)
+from .su4 import (  # noqa: F401
+    TwoQubitSystem,
+    fidelity_su4_ri,
+    propagate_su4,
+    propagate_su4_mc,
 )

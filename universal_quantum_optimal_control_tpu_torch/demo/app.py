@@ -1,10 +1,12 @@
 r"""Serve the trained universal models: rotation → pulse table.
 
-The serving half of the JAX package's ``demo/app.py``: a variant map, a
-cached model loader and ``compute_pulses``.  Plotting, Gradio and the
-per-gate bundles are not ported yet.  The configs and ``.npz`` weights are
-the JAX package's own files, read where they lie (reading a data file
-imports nothing of that package).
+The serving half of the JAX package's ``demo/app.py``: the single-qubit
+variant map, a cached model loader and ``compute_pulses``, and the
+two-qubit model variants (``TWO_QUBIT_VARIANTS``, served through
+``workloads/two_qubit_eval.py``).  Plotting, Gradio, the per-gate bundles
+and the pulse-table variants are not ported yet.  The configs and ``.npz``
+weights are the JAX package's own files, read where they lie (reading a
+data file imports nothing of that package).
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from ..models import (Pipeline, UniversalQOCTransformer, load_params_npz,
                       normalize_pulse_space, params_from_jax)
 from ..utils import load_model_params, resolve_device
 
-__all__ = ["MODEL_VARIANTS", "load_pipeline", "compute_pulses"]
+__all__ = ["MODEL_VARIANTS", "TWO_QUBIT_VARIANTS", "load_pipeline", "compute_pulses",
+           "two_qubit_model_kwargs"]
 
 _JAX_PACKAGE_DIR = (Path(__file__).resolve().parent.parent.parent
                     / "universal_quantum_optimal_control_tpu")
@@ -36,6 +39,35 @@ MODEL_VARIANTS: Dict[str, Dict] = {
     "length_100": {"config": str(_CONFIG_DIR / "universal_single_qubit.json"),
                    "checkpoint": str(_WEIGHTS_DIR / "length100.npz")},
 }
+
+
+# Two-qubit universal models (drive2 system, KAK tokens; d512 × 8 layers,
+# 16 heads): the flagship (L = 100, σ_δ 0.05–0.3) and its σ_δ < 0.05 and
+# σ_δ ≥ 0.35 bands.  ``_s0`` is the L = 40 artifact: no ``max_pulses``, so
+# the JAX default of 40 applies.
+TWO_QUBIT_VARIANTS: Dict[str, Dict] = {
+    "two_qubit_d2_kak": {
+        "checkpoint": str(_WEIGHTS_DIR / "two_qubit_d2_kak.npz"),
+        "drive2": True, "kak_tokens": True, "omega_min": 0.05,
+        "max_pulses": 100},
+    "two_qubit_d2_kak_s0": {
+        "checkpoint": str(_WEIGHTS_DIR / "two_qubit_d2_kak_s0.npz"),
+        "drive2": True, "kak_tokens": True, "omega_min": 0.05},
+    "two_qubit_d2_kak_s04": {
+        "checkpoint": str(_WEIGHTS_DIR / "two_qubit_d2_kak_s04.npz"),
+        "drive2": True, "kak_tokens": True, "omega_min": 0.05,
+        "max_pulses": 100},
+}
+
+
+def two_qubit_model_kwargs(variant: str) -> Tuple[str, Dict]:
+    """``(checkpoint, keywords)`` of a two-qubit variant for
+    ``workloads.two_qubit_eval.model_gate_pulses`` / ``best_phase_pulses``,
+    with ``max_pulses`` explicit (40 where the variant names none)."""
+    spec = dict(TWO_QUBIT_VARIANTS[variant])
+    checkpoint = spec.pop("checkpoint")
+    spec.setdefault("max_pulses", 40)
+    return checkpoint, spec
 
 
 @functools.lru_cache(maxsize=4)

@@ -1,4 +1,4 @@
-from . import pipeline, score_embedding, serialization, universal_transformer  # noqa: F401
+from . import pipeline, score_embedding, serialization, two_qubit, universal_transformer  # noqa: F401
 
 from .pipeline import Pipeline, rotation_vector_from_unitary  # noqa: F401
 from .score_embedding import (  # noqa: F401
@@ -11,6 +11,11 @@ from .serialization import (  # noqa: F401
     load_params_npz,
     params_from_jax,
     transfer_encoder_params,
+)
+from .two_qubit import (  # noqa: F401
+    TwoQubitQOCTransformer,
+    makhlin_invariants_ri,
+    unitary_tokens,
 )
 from .universal_transformer import (  # noqa: F401
     UniversalQOCTransformer,

@@ -32,8 +32,8 @@ from torch import nn
 from ..utils.device import resolve_device
 from .score_embedding import score_features, sinusoidal_positional_encoding
 
-__all__ = ["UniversalQOCTransformer", "EncoderBlock", "normalize_pulse_space",
-           "wrap_angle"]
+__all__ = ["UniversalQOCTransformer", "EncoderBlock", "init_like_flax",
+           "normalize_pulse_space", "wrap_angle"]
 
 PulseSpace = Tuple[Tuple[str, Tuple[float, float]], ...]
 
@@ -77,6 +77,23 @@ def _dropout(x: torch.Tensor, p: float, training: bool,
     keep = 1.0 - p
     mask = torch.rand(shape or x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+@torch.no_grad()
+def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
+    """Re-draw every weight of ``model`` from Flax's defaults, in place:
+    ``Dense`` and attention kernels ``lecun_normal`` (a normal truncated at
+    ±2σ, σ corrected so the drawn std is 1/√fan_in), biases 0, LayerNorm
+    scale 1 and bias 0.  ``generator`` lies on the parameters' device."""
+    for module in model.modules():
+        if isinstance(module, nn.Linear):
+            std = 1.0 / math.sqrt(module.in_features) / _TRUNC_STD
+            nn.init.trunc_normal_(module.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            nn.init.zeros_(module.bias)
+        elif isinstance(module, nn.LayerNorm):
+            nn.init.ones_(module.weight)
+            nn.init.zeros_(module.bias)
 
 
 class MultiHeadAttention(nn.Module):
@@ -181,21 +198,9 @@ class UniversalQOCTransformer(nn.Module):
     def param_dim(self) -> int:
         return len(self.pulse_space)
 
-    @torch.no_grad()
     def init_like_flax(self, generator: torch.Generator) -> None:
-        """Re-draw every weight from Flax's defaults, in place: ``Dense`` and
-        attention kernels ``lecun_normal`` (a normal truncated at ±2σ, σ
-        corrected so the drawn std is 1/√fan_in), biases 0, LayerNorm scale
-        1 and bias 0.  ``generator`` lies on the parameters' device."""
-        for module in self.modules():
-            if isinstance(module, nn.Linear):
-                std = 1.0 / math.sqrt(module.in_features) / _TRUNC_STD
-                nn.init.trunc_normal_(module.weight, 0.0, std, -2.0 * std, 2.0 * std,
-                                      generator=generator)
-                nn.init.zeros_(module.bias)
-            elif isinstance(module, nn.LayerNorm):
-                nn.init.ones_(module.weight)
-                nn.init.zeros_(module.bias)
+        """Re-draw every weight from Flax's defaults (:func:`init_like_flax`)."""
+        init_like_flax(self, generator)
 
     def forward(self, rotation_vector: torch.Tensor,
                 base_pulse: Optional[torch.Tensor] = None,

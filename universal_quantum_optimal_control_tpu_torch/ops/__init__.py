@@ -6,3 +6,9 @@ from .propagate_su2 import (  # noqa: F401
     propagate_mc_vjp_cuda,
     propagate_mc_vjp_plain,
 )
+from .propagate_su4 import (  # noqa: F401
+    mean_fidelity_su4_cuda,
+    mean_fidelity_su4_plain,
+    propagate_su4_mc_cuda,
+    propagate_su4_mc_plain,
+)

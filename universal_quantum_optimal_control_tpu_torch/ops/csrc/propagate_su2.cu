@@ -37,10 +37,9 @@
 // leave the kernel, so a sign-free variant would flip them; B1 and B2 use the
 // same sign-resolved sincosf, so the sign trap cannot arise in any of them.
 //
-// Reduction (B1): a fixed-order tree inside each block writes one partial
-// per block; a second small kernel sums a target's partials in double, in a
-// fixed order, and divides by M.  No atomics, so the result is the same from
-// run to run.
+// Reduction (B1): common.cuh's deterministic two passes, one partial per
+// block, then a target's partials summed in double.  No atomics, so the
+// result is the same from run to run.
 //
 // Interface: extern "C" launchers returning cudaError_t (the launch status
 // from cudaGetLastError), loaded with ctypes.  The caller owns every buffer
@@ -48,6 +47,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -148,7 +149,6 @@ mean_fid_kernel(const float* __restrict__ pulses,
                 const float* __restrict__ eps, float* __restrict__ partials,
                 int L, int64_t M) {
   extern __shared__ float row[];
-  __shared__ float warp_sums[kThreads / 32];
   const int b = blockIdx.y;
   stage_row<P>(pulses, b, L, row);
   __syncthreads();
@@ -161,35 +161,9 @@ mean_fid_kernel(const float* __restrict__ pulses,
     const float inner = t[0] * q.w + t[1] * q.x + t[2] * q.y + t[3] * q.z;
     f = (4.0f * inner * inner + 2.0f) / 6.0f;
   }
-  for (int off = 16; off > 0; off >>= 1)
-    f += __shfl_down_sync(0xffffffffu, f, off);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = f;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    f = threadIdx.x < kThreads / 32 ? warp_sums[threadIdx.x] : 0.0f;
-    for (int off = 16; off > 0; off >>= 1)
-      f += __shfl_down_sync(0xffffffffu, f, off);
-    if (threadIdx.x == 0)
-      partials[static_cast<int64_t>(b) * gridDim.x + blockIdx.x] = f;
-  }
-}
-
-// B1, pass 2: grid (B); out[b] = sum of partials[b, :] / M, summed in double.
-__global__ void __launch_bounds__(kThreads)
-reduce_partials_kernel(const float* __restrict__ partials, int n,
-                       float* __restrict__ out, int64_t M) {
-  __shared__ double sums[kThreads];
-  const int b = blockIdx.x;
-  double s = 0.0;
-  for (int j = threadIdx.x; j < n; j += kThreads)
-    s += partials[static_cast<int64_t>(b) * n + j];
-  sums[threadIdx.x] = s;
-  __syncthreads();
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) sums[threadIdx.x] += sums[threadIdx.x + stride];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[b] = static_cast<float>(sums[0] / M);
+  f = uqoc::block_sum<kThreads>(f);
+  if (threadIdx.x == 0)
+    partials[static_cast<int64_t>(b) * gridDim.x + blockIdx.x] = f;
 }
 
 // ---------------------------------------------------------------------------
@@ -430,10 +404,6 @@ cudaError_t launch_vjp(dim3 grid, size_t smem, cudaStream_t s,
 
 extern "C" {
 
-const char* uqoc_su2_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
 // Blocks of pass 1 per target; the caller sizes the partials buffer (B, n).
 int uqoc_su2_num_blocks(int64_t M) { return static_cast<int>(num_blocks(M)); }
 
@@ -490,7 +460,7 @@ cudaError_t uqoc_su2_mean_fidelity(const float* pulses, const float* q_target,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  reduce_partials_kernel<<<B, kThreads, 0, s>>>(
+  uqoc::reduce_partials_kernel<kThreads><<<B, kThreads, 0, s>>>(
       partials, static_cast<int>(grid.x), out, M);
   return cudaGetLastError();
 }

@@ -32,7 +32,7 @@ from torch.autograd.function import once_differentiable
 
 from ..core.propagate import propagate_mc
 from ..core.su2 import quat_fidelity
-from ._build import load_library
+from ._build import load_library, raise_on
 
 __all__ = [
     "propagate_mc_cuda",
@@ -128,29 +128,23 @@ def _check(pulses: torch.Tensor, delta: torch.Tensor, eps: torch.Tensor,
     return B, L, P, M
 
 
-def _raise_on(lib, err: int, what: str) -> None:
-    if err != 0:
-        msg = lib.uqoc_su2_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
-
-
 def _launch_propagate_mc(pulses, delta, eps) -> torch.Tensor:
     B, L, P, M = _check(pulses, delta, eps)
-    lib = load_library()
+    lib = load_library("su2")
     out = torch.empty((B, M, 4), dtype=torch.float32, device=pulses.device)
     with torch.cuda.device(pulses.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.uqoc_su2_propagate_mc(
             pulses.data_ptr(), delta.data_ptr(), eps.data_ptr(),
             out.data_ptr(), B, L, P, M, stream)
-    _raise_on(lib, err, "propagate_mc")
+    raise_on(lib, err, "propagate_mc")
     propagate_mc_cuda.launches += 1
     return out
 
 
 def _launch_mean_fidelity(pulses, q_target, delta, eps) -> torch.Tensor:
     B, L, P, M = _check(pulses, delta, eps, q_target)
-    lib = load_library()
+    lib = load_library("su2")
     partials = torch.empty((B, lib.uqoc_su2_num_blocks(M)), dtype=torch.float32,
                            device=pulses.device)
     out = torch.empty((B,), dtype=torch.float32, device=pulses.device)
@@ -160,14 +154,14 @@ def _launch_mean_fidelity(pulses, q_target, delta, eps) -> torch.Tensor:
             pulses.data_ptr(), q_target.data_ptr(), delta.data_ptr(),
             eps.data_ptr(), partials.data_ptr(), out.data_ptr(), B, L, P, M,
             stream)
-    _raise_on(lib, err, "mean_fidelity")
+    raise_on(lib, err, "mean_fidelity")
     mean_fidelity_cuda.launches += 1
     return out
 
 
 def _launch_vjp(pulses, delta, eps, g):
     B, L, P, M = _check(pulses, delta, eps, g=g)
-    lib = load_library()
+    lib = load_library("su2")
     dev = pulses.device
     partials = torch.empty((B, lib.uqoc_su2_num_blocks(M), L * P),
                            dtype=torch.float32, device=dev)
@@ -180,7 +174,7 @@ def _launch_vjp(pulses, delta, eps, g):
             pulses.data_ptr(), delta.data_ptr(), eps.data_ptr(), g.data_ptr(),
             partials.data_ptr(), dpulses.data_ptr(), ddelta.data_ptr(),
             deps.data_ptr(), B, L, P, M, stream)
-    _raise_on(lib, err, "propagate_mc_vjp")
+    raise_on(lib, err, "propagate_mc_vjp")
     propagate_mc_vjp_cuda.launches += 1
     return dpulses, ddelta, deps
 

@@ -1,20 +1,26 @@
-r"""The single-qubit system the trainer drives (port of ``training/systems.py``).
+r"""The systems the trainer drives (port of ``training/systems.py``).
 
 A *system* samples its disorder channels and scores a pulse batch against
-its targets.  Only the unsharded (``mesh=None``) objectives are ported; the
-mesh waits for ``ROADMAP.md`` A.17, and ``SU4System`` for slice 3.
+its targets: :class:`SU2System` (single qubit) and :class:`SU4System` (two
+qubits; scoring only on its ``"pallas"`` backend until the training
+kernels B4 and B5 land, ``ROADMAP.md`` A.14).  Only the unsharded
+(``mesh=None``) objectives are ported; the mesh waits for ``ROADMAP.md``
+A.17.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
+from ..core import su4 as su4_mod
 from ..core.errors import sample_ore_ple
+from ..ops.propagate_su4 import mean_fidelity_su4_cuda, mean_fidelity_su4_plain
 from ..parallel.mc_parallel import mean_fidelity_local
 
-__all__ = ["SU2System", "make_objective", "make_per_target_objective"]
+__all__ = ["SU2System", "SU4System", "make_objective", "make_per_target_objective"]
 
 
 def _no_mesh(mesh) -> None:
@@ -61,3 +67,47 @@ class SU2System:
     def local_mean_fidelity(self, pulses, q_target, errors):
         delta, eps = errors
         return mean_fidelity_local(pulses, q_target, delta, eps, self.backend)
+
+
+class SU4System:
+    """Two-qubit system: independent per-qubit off-resonance δ₁, δ₂ and a
+    shared pulse-length error ε; targets are (re, im) 4×4 pairs stacked
+    into ``(B, 2, 4, 4)``.
+
+    ``backend``: "xla" (the eager plain path, differentiable by autograd)
+    or "pallas" (kernel B6, which has no backward yet: under autograd it
+    raises, naming ``ROADMAP.md`` A.14).
+    """
+
+    def __init__(self, xtalk: float = 0.1, coupling: float = 0.5,
+                 backend: str = "xla", drive2: bool = False) -> None:
+        self.system = su4_mod.TwoQubitSystem(xtalk=xtalk, coupling=coupling,
+                                             drive2=drive2)
+        self.backend = backend
+
+    @staticmethod
+    def pack_target(U) -> torch.Tensor:
+        """Complex ``(B, 4, 4)`` targets → real f32 ``(B, 2, 4, 4)`` on the
+        CPU (split in numpy on the host)."""
+        U = np.asarray(U)
+        return torch.from_numpy(np.stack([U.real, U.imag], axis=1).astype(np.float32))
+
+    def sample_errors(self, generator: torch.Generator, shape, delta_std,
+                      epsilon_std):
+        """``(δ₁, δ₂, ε)``, each gaussian of ``shape`` on the generator's
+        device, drawn in that order."""
+        def draw():
+            return torch.randn(shape, generator=generator, device=generator.device)
+        delta1 = draw() * delta_std
+        delta2 = draw() * delta_std
+        return delta1, delta2, draw() * epsilon_std
+
+    def local_mean_fidelity(self, pulses, target, errors):
+        delta1, delta2, eps = errors
+        args = (pulses, target[:, 0].contiguous(), target[:, 1].contiguous(),
+                delta1, delta2, eps, self.system)
+        if self.backend == "pallas":
+            return mean_fidelity_su4_cuda(*args)
+        if self.backend == "xla":
+            return mean_fidelity_su4_plain(*args)
+        raise ValueError(f"unknown backend {self.backend!r} (want 'xla' or 'pallas')")
