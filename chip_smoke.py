@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 r"""Smoke run of the PyTorch port on one CUDA card: build, check, serve,
-score, train, and the two-qubit serving path, then time.
+score, train, and the two-qubit serving and training paths, then time.
 
     python3 chip_smoke.py
 
-Ten phases, each printing its own line with its seconds:
+Twelve phases, each printing its own line with its seconds:
 
 1. device: the card, torch and CUDA versions, ``nvidia-smi`` name and power limit;
 2. build: one ``nvcc`` call per source, started together
-   (``ops/csrc/propagate_su2.cu``: B1, B2, B3; ``propagate_su4.cu``: B6,
-   B7), with ptxas' registers and spills per kernel;
+   (``ops/csrc/propagate_su2.cu``: B1, B2, B3; ``propagate_su4.cu``: B4,
+   B6, B7; ``propagate_su4_bwd.cu``: B5), with ptxas' registers and spills
+   per kernel;
 3. check: kernels B1 (mean fidelity), B3 (per-sample product) and B2 (the
    VJP of B3) against their plain PyTorch versions on the card, P ∈ {2, 3,
    4}, L ∈ {1, 7, 100}, M ∈ {1000, 2¹⁶}, plus B2 at L = 400, P = 4; and the
@@ -19,45 +20,57 @@ Ten phases, each printing its own line with its seconds:
    fidelity) against their plain versions, P ∈ {2, 3, 4 (drive2)},
    L ∈ {1, 7, 100}, M ∈ {200, 2¹⁴}; at L = 100 also against the plain
    version in f64;
-5. serve: the ``length_100`` flagship (d512 × 8 layers, 16 heads, L = 100,
+5. check-su4-train: kernels B4 (B6 with each sample's product) and B5 (the
+   product-seeded reverse sweep) against their plain versions, B5 under a
+   non-uniform per-target cotangent, P ∈ {2, 3, 4}, L ∈ {3, 7, 100},
+   M ∈ {1, 200, 1000};
+6. serve: the ``length_100`` flagship (d512 × 8 layers, 16 heads, L = 100,
    P = 2) from its shipped ``.npz``, in bf16 (as the JAX demo serves) and
    f32, for the 5 named gates plus 3 random targets;
-6. score: E[F] of those pulse tables through B1 at σ_δ = 1.0, ε_std = 0.05,
+7. score: E[F] of those pulse tables through B1 at σ_δ = 1.0, ε_std = 0.05,
    M = 2²⁰ per target, and ``mc_fidelity_estimate`` through B3 on X(π),
    held against the flagship's published X(π) E[F] of 0.9502;
-7. train: the training CLI (``workloads/universal_single_qubit.py``) at the
+8. train: the training CLI (``workloads/universal_single_qubit.py``) at the
    flagship's full width with ``--backend pallas``, batch 200, M = 1000,
    two epochs of 5 steps in each of the three curriculum bands; then one
    step's gradient through ``pallas`` against ``xla`` from the same
    weights and draws, and ms per train step;
-8. serve-su4: the two-qubit flagship ``two_qubit_d2_kak`` (d512 × 8 layers,
+9. serve-su4: the two-qubit flagship ``two_qubit_d2_kak`` (d512 × 8 layers,
    16 heads, L = 100, drive2 P = 4, KAK tokens) from its shipped ``.npz``
    in f32, best-of-ℤ₄ serving of the 5 named gates (20 model inputs; the
    choice scored by B6), card pulses held against CPU pulses;
-9. score-su4: ``workloads/two_qubit_eval.py::eval_pulse_tables`` through B6
-   at σ_δ ∈ {0, 0.1, 0.2}, M = 20 000, ε_std = 0.05, held against the JAX
-   package's CPU table; then ``analysis/plots_su4.py``'s E[F](σ_δ) sweep
-   (20 σ × 2000) and F(δ₁, δ₂) grid (61²) of CZ through B7, each against
-   its plain version on the card;
-10. time: each kernel at the shape of each path that runs it (B1 and B3
-    serving and training, B2 training, B6 and B7 two-qubit serving) with
-    CUDA events, beside its plain version and its bound; one row of the
+10. score-su4: ``workloads/two_qubit_eval.py::eval_pulse_tables`` through
+    B6 at σ_δ ∈ {0, 0.1, 0.2}, M = 20 000, ε_std = 0.05, held against the
+    JAX package's CPU table; then ``analysis/plots_su4.py``'s E[F](σ_δ)
+    sweep (20 σ × 2000) and F(δ₁, δ₂) grid (61²) of CZ through B7, each
+    against its plain version on the card;
+11. train-su4: the two-qubit training CLI (``workloads/two_qubit.py``) on
+    the flagship's recipe at full width with ``--backend pallas`` (batch
+    32, M = 1024, σ_δ = 0.2, warm-started from ``two_qubit_d2_kak.npz``),
+    2 epochs of 2 steps, its eval E[F] held above 0.85; then one step's
+    gradient through ``pallas`` against ``xla`` at that width and M, ms per
+    step of each, and a profile of pallas steps;
+12. time: each kernel at the shape of each path that runs it (B1 and B3
+    serving and training, B2 training, B6 and B7 two-qubit serving, B4, B5
+    and B6 two-qubit training) with CUDA events, beside its plain version,
+    its bound and its ptxas registers, spills and stack; one row of the
     ``kernels`` line per kernel and path, with that path's launches.
 
-Phases 5–6 are the single-qubit serving path, phase 7's CLI run the
-training path and phases 8–9 the two-qubit serving path; the kernels'
-launch counters are set to 0 just before each and read just after, and
-every kernel of the path must have been launched there.  Any failure
-raises and the run exits nonzero.  The line before the last is the card's
-``nvidia-smi`` name and power limit; the last line is
-``{"ok": true, "device": {...}}``.  Exits nonzero without a result where
-CUDA is unavailable.
+Phases 6–7 are the single-qubit serving path, phase 8's CLI run the
+training path, phases 9–10 the two-qubit serving path and phase 11's CLI
+run the two-qubit training path; the kernels' launch counters are set to 0
+just before each and read just after, and every kernel of the path must
+have been launched there.  Any failure raises and the run exits nonzero.
+The line before the last is the card's ``nvidia-smi`` name and power
+limit; the last line is ``{"ok": true, "device": {...}}``.  Exits nonzero
+without a result where CUDA is unavailable.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -96,17 +109,28 @@ SERVE_TOL = 1e-3  # card f32 vs CPU f32 pulses (φ modulo 2π)
 GRAD_RTOL = 1e-4  # as tests/test_pallas_kernel.py holds the JAX VJP kernel
 TRAIN_GRAD_TOL = 1e-4  # pallas vs xla, relative to the global gradient norm
 
-# SU(4), B6 and B7, per (sample, segment) as counted in propagate_su4.cu's
+# SU(4), B4, B6 and B7, per (sample, segment) as counted in su4.cuh's
 # compose(), which forms only what the math needs: A = -iHτ/2⁴ is sparse
 # (12 of its 32 reals are zero) and anti-Hermitian, A² and A⁴ Hermitian, A³
 # anti-Hermitian, so each is formed as an upper triangle from the products
 # that are not zero: 10 (A) + 37 (A², closed form) + 128 (A³ = A²A) + 166
-# (A⁴ = A²A²) + 188 (P, Q) + 448 (P + A⁴Q) + 4 × 480 (squarings, dense) +
-# 480 (W ← U W); per sample 10 (energies, (1 + ε)/2) and, for B6, 134
-# (Tr(U†T), F, the sum).
-SU4_FLOPS_PER_SEGMENT = 3377
+# (A⁴ = A²A²) + 184 (P − I, Q) + 448 (P − I + A⁴Q) + 4 × 544 (squarings of
+# I + X as 2X + X², dense) + 512 (W ← W + X W); per sample 10 (energies,
+# (1 + ε)/2) and, for B6 and B4, 134 (Tr(U†T), F, the sum).
+SU4_FLOPS_PER_SEGMENT = 3661
 SU4_FLOPS_PER_SAMPLE = 10
 SU4_FLOPS_PER_SAMPLE_FIDELITY = 134
+# B5 per (sample, segment), counted the same way from su4.cuh's
+# reverse_sweep(): the segment rebuilt to T8(A) − I (973), the T8 adjoint
+# (products with A⁴, Qᴴ, A², A: 3552), four squarings (2176) beside four
+# squaring adjoints (4224), U_k = I + X (4), the 20 entries of D = E·U_k that
+# the chain rule reads (316), the chain rule (57 / 58 / 65 at P = 2 / 3 / 4),
+# V ← U_kᴴ V U_k (960) and one add per pulse channel for the sum over
+# samples; per sample the energies, (1 + ε)/2 (10) and the seed V = G Pᴴ
+# from the saved product (706).  Both held to the host build of the same code
+# by tests/test_torch_su4_host.py.
+SU4_VJP_FLOPS_PER_SEGMENT = {2: 12264, 3: 12266, 4: 12274}
+SU4_VJP_FLOPS_PER_SAMPLE = 716
 # the JAX suite's tolerances for its Pallas SU(4) kernels (tests/test_su4_pallas.py:43,
 # :69, :121): products 2e-5, fidelities 1e-5 (2e-5 on drive2); at L = 100 widened to
 # twice the plain f32 version's own error against f64 where that is larger
@@ -115,6 +139,11 @@ SU4_FID_TOL = {2: 1e-5, 3: 1e-5, 4: 2e-5}
 SU4_SWEEP_TOL = 1e-5  # E[F](σ) means, B7 against plain
 SU4_MC_TOL = 0.005  # σ > 0: different draws, M = 20 000 (slice 1's rule)
 SU4_EXACT_TOL = 1e-3  # σ = 0 (exact) against the JAX package's CPU value
+# the two-qubit training path: the flagship recipe's batch and MC budget; its
+# eval E[F] at σ_δ = 0.2 after a warm start must stay far above chance (the
+# shipped model's blended figure is 0.951)
+TRAIN4_BATCH, TRAIN4_MC = 32, 1024
+TRAIN4_MIN_EVAL_FID = 0.85
 # The JAX package's table on the CPU, from
 #   JAX_PLATFORMS=cpu python -m universal_quantum_optimal_control_tpu.workloads.two_qubit_eval \
 #       --sigmas 0,0.1,0.2 --monte_carlo 20000 --save_pulses jax_eval.npz
@@ -283,15 +312,255 @@ def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def su4_bound(B, L, P, M, fidelity):
-    """B6 (``fidelity``) or B7: reads pulses, δ₁, δ₂, ε (and the target) once;
-    writes (B,) means or the (re, im) products."""
+def su4_bound(B, L, P, M, fidelity, product=False):
+    """B6 (``fidelity``), B4 (``fidelity`` and ``product``) or B7: reads
+    pulses, δ₁, δ₂, ε (and the target) once; writes (B,) means, the
+    per-sample products, or both."""
     per_sample = L * SU4_FLOPS_PER_SEGMENT + SU4_FLOPS_PER_SAMPLE
     if fidelity:
         per_sample += SU4_FLOPS_PER_SAMPLE_FIDELITY
     in_bytes = 4 * (B * L * P + 3 * B * M + (32 * B if fidelity else 0))
-    out_bytes = 4 * B if fidelity else 4 * 32 * B * M
+    out_bytes = (4 * B if fidelity else 0) + (4 * 32 * B * M if product or not fidelity else 0)
     return roofline(B * M * per_sample, in_bytes + out_bytes)
+
+
+def su4_vjp_bound(B, L, P, M):
+    """B5: reads pulses, the targets, ḡ, δ₁, δ₂, ε and B4's product once;
+    writes dpulses, dδ₁, dδ₂ and dε."""
+    in_bytes = 4 * (B * L * P + 32 * B + B + 3 * B * M + 32 * B * M)
+    out_bytes = 4 * (B * L * P + 3 * B * M)
+    flops = B * M * (L * SU4_VJP_FLOPS_PER_SEGMENT[P] + SU4_VJP_FLOPS_PER_SAMPLE)
+    return roofline(flops, in_bytes + out_bytes)
+
+
+def ptxas_table(built) -> dict:
+    """``{entry function: {registers, stack_bytes, spill_store_bytes,
+    spill_load_bytes}}`` from the libraries' ``-Xptxas -v`` logs."""
+    table, name = {}, None
+    for b in built.values():
+        for line in b["log"].splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                name = m.group(1)
+                table[name] = {}
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m and name:
+                table[name].update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]),
+                                   spill_load_bytes=int(m[3]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                table[name]["registers"] = int(m[1])
+    return table
+
+
+def ptxas_of(table: dict, fragment: str) -> dict:
+    """The one entry function whose mangled name contains ``fragment``."""
+    hits = [v for k, v in table.items() if fragment in k]
+    if len(hits) != 1:
+        raise AssertionError(f"{len(hits)} ptxas entries match {fragment!r}")
+    return hits[0]
+
+
+def check_su4_train(gen, dev) -> str:
+    """B4 (mean and product) against its plain version and B5 against
+    autograd through the plain forward under a non-uniform per-target ḡ (the
+    CVaR path), P ∈ {2, 3, 4}, L ∈ {3, 7, 100}, M ∈ {1, 200, 1000}; every
+    P ≥ 3 case has Ω < 0 entries.  Tolerances: B4 as B6 and B7 in
+    check-su4; B5 the JAX suite's 1e-5 abs on gradients
+    (tests/test_su4_pallas_bwd.py) with grads_close's relative part, widened
+    to twice the plain f32 version's own error against f64 where larger."""
+    from universal_quantum_optimal_control_tpu_torch.ops.propagate_su4 import (
+        mean_fidelity_su4_with_product_cuda, mean_fidelity_su4_with_product_plain,
+        su4_objective_vjp_from_product_cuda, su4_objective_vjp_from_product_plain)
+    worst_f, worst_u, worst_g = 0.0, 0.0, [0.0] * 3
+    n = 0
+    for P in (2, 3, 4):
+        for L in (3, 7, 100):
+            for M in (1, 200, 1000):
+                case = f"P={P} L={L} M={M}"
+                pulses, tr, ti, d1, d2, ep, sys4 = su4_random_inputs(gen, 3, L, P, M, dev)
+                gbar = 0.1 + torch.rand(3, generator=gen, device=dev)
+                F_k, prod_k = mean_fidelity_su4_with_product_cuda(pulses, tr, ti, d1, d2, ep, sys4)
+                got = su4_objective_vjp_from_product_cuda(pulses, tr, ti, d1, d2, ep, gbar, prod_k,
+                                                          sys4)
+                torch.cuda.synchronize()
+                F_p, prod_p = mean_fidelity_su4_with_product_plain(pulses, tr, ti, d1, d2, ep, sys4)
+                err_f, err_u = max_err(F_k, F_p), max_err(prod_k, prod_p)
+                tol_u, tol_f = SU4_PROD_TOL, SU4_FID_TOL[P]
+                args64 = [t.double() for t in (pulses, tr, ti, d1, d2, ep)]
+                if L > 7:
+                    F64, prod64 = mean_fidelity_su4_with_product_plain(*args64, sys4)
+                    tol_u = max(tol_u, 2 * max_err(prod_p, prod64))
+                    tol_f = max(tol_f, 2 * max_err(F_p, F64))
+                if not err_u <= tol_u:
+                    raise AssertionError(f"B4 {case}: |product kernel - plain| {err_u:.3e} > "
+                                         f"{tol_u:.2e}")
+                if not err_f <= tol_f:
+                    raise AssertionError(f"B4 {case}: |F kernel - plain| {err_f:.3e} > {tol_f:.2e}")
+                want = su4_objective_vjp_from_product_plain(pulses, tr, ti, d1, d2, ep, gbar,
+                                                            prod_p, sys4)
+                exact = su4_objective_vjp_from_product_plain(*args64, gbar.double(), None, sys4)
+                e5 = grads_close(f"B5 {case}", ("pulses", "delta1", "delta2", "eps"),
+                                 (1e-5,) * 4, got, want, exact)
+                worst_f, worst_u = max(worst_f, err_f), max(worst_u, err_u)
+                worst_g = [max(w, e) for w, e in zip(worst_g, e5)]
+                n += 1
+                print(f"  {case}: B4 F err {err_f:.2e} (tol {tol_f:.1e}), product err "
+                      f"{err_u:.2e} (tol {tol_u:.1e}); B5 err {e5[0]:.2e} (vs f64: kernel "
+                      f"{e5[1]:.2e}, plain {e5[2]:.2e})")
+    return (f"{n} cases; worst B4 F {worst_f:.3e}, product {worst_u:.3e}; worst B5 {worst_g[0]:.3e} "
+            f"against plain (atol max(1e-5, 2× the plain f32 error), rtol {GRAD_RTOL:.0e}); "
+            f"against f64: B5 kernel {worst_g[1]:.3e} / plain {worst_g[2]:.3e}")
+
+
+def train_su4(ckpt, kw4, dev) -> dict:
+    """The two-qubit training path: the CLI (``workloads/two_qubit.py``) on
+    the ``two_qubit_d2_kak`` recipe at full width with ``--backend pallas``,
+    warm-started from the shipped weights, 2 epochs of 2 steps in the σ_δ =
+    0.2 band, with the kernels' counters set to 0 just before and read just
+    after; then one step's gradient through ``pallas`` against ``xla`` from
+    the same weights and draws, ms per step, and a profile of pallas steps.
+    Returns what the time phase needs."""
+    from universal_quantum_optimal_control_tpu_torch.data import kak_input_tokens
+    from universal_quantum_optimal_control_tpu_torch.ops import propagate_su4 as t4
+    from universal_quantum_optimal_control_tpu_torch.training import (CurriculumBand, SU4System,
+                                                                      TrainConfig, Trainer)
+    from universal_quantum_optimal_control_tpu_torch.workloads import two_qubit, two_qubit_eval
+
+    B, M = TRAIN4_BATCH, TRAIN4_MC
+    counters = {"B4": t4.mean_fidelity_su4_with_product_cuda,
+                "B5": t4.su4_objective_vjp_from_product_cuda,
+                "B6": t4.mean_fidelity_su4_cuda, "B7": t4.propagate_su4_mc_cuda}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        save = Path(tmp) / "run"
+        argv = ["--device", "cuda", "--backend", "pallas", "--max_pulses", "100",
+                "--d_model", "512", "--n_layers", "8", "--n_heads", "16", "--drive2",
+                "--kak_tokens", "--omega_min", "0.05", "--target_mode", "mixed",
+                "--phase_augment", "--batch_size", str(B), "--monte_carlo", str(M),
+                "--curriculum", "0.2", "--lr_schedule", "cosine", "--learning_rate", "1e-4",
+                "--reset_opt_per_band", "--shuffle", "--recover_collapse", "0.05",
+                "--restore", ckpt, "--train_size", "64", "--eval_size", "32",
+                "--num_epoch", "2", "--save_path", str(save)]
+        for c in counters.values():
+            c.launches = 0
+        history = two_qubit.main(argv)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        t_cli = time.perf_counter() - t0
+        if min(launches[k] for k in ("B4", "B5", "B6")) < 1:
+            raise AssertionError(f"a kernel was not launched on the two-qubit training path: "
+                                 f"{launches}")
+        band = history["bands"][0]
+        losses, fids = band["train_loss"], band["eval_fid"]
+        if len(history["bands"]) != 1 or len(losses) != 2 or len(fids) != 2:
+            raise AssertionError(f"expected 1 band × 2 epochs, got {history}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"a training loss is not finite: {losses}")
+        if not all(TRAIN4_MIN_EVAL_FID < x <= 1.0 for x in fids):
+            raise AssertionError(f"eval E[F] at sigma 0.2 {fids} outside ({TRAIN4_MIN_EVAL_FID}, "
+                                 f"1] (the shipped model's blended figure is 0.951): the restore "
+                                 f"or the KAK tokens are wrong")
+        exports = sorted(save.glob("*_pulses.npz"))
+        if len(exports) != 1 or not (save / "metrics.csv").exists():
+            raise AssertionError(f"pulse exports {exports}, metrics.csv "
+                                 f"{(save / 'metrics.csv').exists()}")
+        with np.load(exports[0]) as z:
+            if z["pulses"].shape != (64, 100, 4) or not np.isfinite(z["pulses"]).all():
+                raise AssertionError(f"{exports[0].name}: {z['pulses'].shape}")
+    print(f"  CLI: 1 band × 2 epochs × 2 steps at batch {B}, M = {M}, L = 100, d512 × 8 in "
+          f"{t_cli:.2f} s; train loss " + " ".join(f"{x:.4f}" for x in losses)
+          + "; eval E[F] at sigma 0.2 " + " ".join(f"{x:.5f}" for x in fids)
+          + f"; launches {launches}")
+
+    # one step's gradient through pallas and xla from the same weights and draws
+    sys_p = SU4System(drive2=True, backend="pallas")
+    model = two_qubit_eval.load_two_qubit_model(ckpt, device=dev, **kw4)
+    targets = two_qubit.build_targets(2027, B, sys_p.system, mode="mixed", phase_augment=True)
+    U = targets[:, 0].double().numpy() + 1j * targets[:, 1].double().numpy()
+    x = torch.from_numpy(kak_input_tokens(U)).to(dev)
+    targets = targets.to(dev)
+    trainers = {b: Trainer(model, TrainConfig(monte_carlo=M, batch_size=B, learning_rate=1e-4),
+                           system=SU4System(drive2=True, backend=b), device=dev)
+                for b in ("pallas", "xla")}
+    band = CurriculumBand(0.2)
+    errors = trainers["pallas"].sample_errors(B, band)
+    grads, step_loss, peak = {}, {}, {}
+    for b, tr in trainers.items():
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = tr.objective(x, targets, errors)
+        loss.backward()
+        torch.cuda.synchronize()
+        peak[b] = torch.cuda.max_memory_allocated() / 2**30
+        grads[b] = torch.cat([p.grad.flatten() for p in model.parameters()])
+        step_loss[b] = float(loss.detach())
+    # the plain f32 version's own error at L = 100: the same step's loss and
+    # pulse cotangent in f64 (the plain version from the model's pulses on),
+    # chained through the same model Jacobian
+    tr = trainers["xla"]
+    model.train(False)
+    pulses = model(x)
+    p64 = pulses.detach().double().requires_grad_(True)
+    F64 = t4.mean_fidelity_su4_plain(p64, *(t.double() for t in (targets[:, 0], targets[:, 1],
+                                                                 *errors)), sys_p.system)
+    (dp64,) = torch.autograd.grad(tr._loss_of_mean_fid(torch.mean(F64)), p64)
+    g64 = torch.cat([g.flatten() for g in torch.autograd.grad(
+        pulses, list(model.parameters()), dp64.float())])
+    n64 = float(g64.norm())
+    e32 = {b: float((g - g64).norm()) / n64 for b, g in grads.items()}
+    gnorm = float(grads["xla"].norm())
+    rel = float((grads["pallas"] - grads["xla"]).norm()) / gnorm
+    tol = max(TRAIN_GRAD_TOL, 2.0 * e32["xla"])
+    print(f"  one step at M = {M} (the plain autograd fits: peak {peak['xla']:.2f} GiB, pallas "
+          f"{peak['pallas']:.2f} GiB), pallas vs xla: loss {step_loss['pallas']:.6f} / "
+          f"{step_loss['xla']:.6f}, |g_pallas - g_xla| / |g_xla| {rel:.3e} (|g| {gnorm:.4e}, "
+          f"tol max({TRAIN_GRAD_TOL:.0e}, 2× the plain f32 error) = {tol:.2e}); against the "
+          f"step in f64 (loss and pulse cotangent): pallas {e32['pallas']:.3e}, xla "
+          f"{e32['xla']:.3e} of the norm")
+    if not rel <= tol:
+        raise AssertionError(f"two-qubit pallas vs xla gradient: {rel:.3e} of the norm > "
+                             f"{tol:.2e}")
+
+    # ms per train step (fresh draws and dropout, as in the CLI), host clock
+    # around synchronized steps
+    step_ms = {}
+    for b, n in (("pallas", 10), ("xla", 2)):
+        tr = trainers[b]
+        tr.train_step(x, targets, tr.sample_errors(B, band), dropout=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(n):
+            tr.train_step(x, targets, tr.sample_errors(B, band), dropout=True)
+        torch.cuda.synchronize()
+        step_ms[b] = 1e3 * (time.perf_counter() - t1) / n
+    tr = trainers["pallas"]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            tr.train_step(x, targets, tr.sample_errors(B, band), dropout=True)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and "#" not in e.key]
+    dev_ms = sum(e.self_device_time_total for e in events) / 3e3
+    ours_ms = sum(e.self_device_time_total for e in events
+                  if any(k in e.key for k in ("mean_fid_su4_kernel", "su4_vjp_kernel",
+                                              "reduce_partials_kernel",
+                                              "reduce_columns_kernel"))) / 3e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"  profile of 3 pallas steps: kernels {dev_ms:.3f} ms per step, "
+          f"{100 * dev_ms / step_ms['pallas']:.1f} % of the {step_ms['pallas']:.2f} ms step "
+          f"(B4/B5 and their reductions {ours_ms:.3f} ms, "
+          f"{100 * ours_ms / step_ms['pallas']:.1f} %); top, us per step: " + "; ".join(
+              f"{e.key[:40]} {e.self_device_time_total / 3:.0f}" for e in top))
+    model.eval()
+    with torch.no_grad():
+        pulses = model(x).contiguous()
+    return {"launches": launches, "step_ms": step_ms, "fids": fids, "rel": rel, "e32": e32,
+            "pulses": pulses, "targets": targets, "errors": errors}
 
 
 def main() -> int:
@@ -322,8 +591,9 @@ def main() -> int:
     from universal_quantum_optimal_control_tpu_torch.data import z4_representatives
     from universal_quantum_optimal_control_tpu_torch.demo.app import two_qubit_model_kwargs
     from universal_quantum_optimal_control_tpu_torch.ops.propagate_su4 import (
-        mean_fidelity_su4_cuda, mean_fidelity_su4_plain, propagate_su4_mc_cuda,
-        propagate_su4_mc_plain)
+        mean_fidelity_su4_cuda, mean_fidelity_su4_plain, mean_fidelity_su4_with_product_cuda,
+        mean_fidelity_su4_with_product_plain, propagate_su4_mc_cuda, propagate_su4_mc_plain,
+        su4_objective_vjp_from_product_cuda, su4_objective_vjp_from_product_plain)
     from universal_quantum_optimal_control_tpu_torch.optimizers import named_two_qubit_targets
     from universal_quantum_optimal_control_tpu_torch.training import SU4System
     from universal_quantum_optimal_control_tpu_torch.workloads import two_qubit_eval
@@ -349,6 +619,7 @@ def main() -> int:
         for line in b["log"].splitlines():
             if any(k in line for k in ("registers", "Compiling entry", "spill")):
                 print("    " + line.strip())
+    ptx = ptxas_table(built)
     phase("build", t0, f"{len(built)} libraries, one nvcc call each, started together")
 
     # 3. kernels against their plain versions
@@ -437,7 +708,11 @@ def main() -> int:
           f"{SU4_FID_TOL[4]:.0e} drive2; at L = 100 max of those and 2× the plain f32 "
           f"error against f64)")
 
-    # 5. serve — the main path starts here: counters to 0
+    # 5. check-su4-train: B4 and B5 against their plain versions
+    t0 = time.perf_counter()
+    phase("check-su4-train", t0, check_su4_train(gen, dev))
+
+    # 6. serve — the main path starts here: counters to 0
     mean_fidelity_cuda.launches = 0
     propagate_mc_cuda.launches = 0
     t0 = time.perf_counter()
@@ -483,7 +758,7 @@ def main() -> int:
     phase("serve", t0, f"length_100 bf16 + f32, 8 targets; card f32 vs CPU f32 "
           f"{serve_err:.2e} (tol {SERVE_TOL:.0e})")
 
-    # 6. score
+    # 7. score
     t0 = time.perf_counter()
     q_t = rotation_vector_to_quat(rv).contiguous()
     M_score = 1 << 20
@@ -515,7 +790,7 @@ def main() -> int:
           f"published {XPI_PUBLISHED}; mc_fidelity_estimate {mc_mean:.5f} ± "
           f"{mc_se:.5f} (M=2^18); launches {serve_launches}")
 
-    # 7. train — the training path starts here: counters to 0
+    # 8. train — the training path starts here: counters to 0
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         save = Path(tmp) / "run"
@@ -618,7 +893,7 @@ def main() -> int:
     phase("train", t0, f"ms per train step at full width, batch 200, M = 1000: pallas "
           f"{step_ms['pallas']:.2f}, xla {step_ms['xla']:.2f}; launches {train_launches}")
 
-    # 8. serve-su4 — the two-qubit serving path starts here: counters to 0
+    # 9. serve-su4 — the two-qubit serving path starts here: counters to 0
     mean_fidelity_su4_cuda.launches = 0
     propagate_su4_mc_cuda.launches = 0
     t0 = time.perf_counter()
@@ -667,7 +942,7 @@ def main() -> int:
           f"best_phase_pulses {t_best4:.2f} s (load + KAK tokens + model + B6); card vs "
           f"CPU pulses {serve4_err:.2e}, best choice {best4_err:.2e} (tol {SERVE_TOL:.0e})")
 
-    # 9. score-su4: the named-gate table through B6, then the sweep and the
+    # 10. score-su4: the named-gate table through B6, then the sweep and the
     # grid of CZ through B7
     t0 = time.perf_counter()
     gates_packed = SU4System.pack_target(U4).to(dev)
@@ -737,7 +1012,16 @@ def main() -> int:
           f"sweep B7 vs plain {sweep_err:.2e} (tol {SU4_SWEEP_TOL:.0e}), grid {grid_err:.2e} "
           f"(tol {grid_tol:.1e}); launches {su4_launches}")
 
-    # 10. time each kernel at each path's shape: one row per (kernel, path),
+    # 11. train-su4 — the two-qubit training path: counters to 0 inside
+    t0 = time.perf_counter()
+    tq = train_su4(ckpt, kw4, dev)
+    phase("train-su4", t0, f"ms per train step at full width, batch {TRAIN4_BATCH}, M = "
+          f"{TRAIN4_MC}, L = 100: pallas {tq['step_ms']['pallas']:.2f}, xla "
+          f"{tq['step_ms']['xla']:.2f}; pallas vs xla gradient {tq['rel']:.3e} of the norm "
+          f"(against f64: pallas {tq['e32']['pallas']:.3e}, xla {tq['e32']['xla']:.3e}); "
+          f"eval E[F] {tq['fids'][-1]:.5f}; launches {tq['launches']}")
+
+    # 12. time each kernel at each path's shape: one row per (kernel, path),
     # its launches those of that path's run
     t0 = time.perf_counter()
     csrc = "universal_quantum_optimal_control_tpu_torch/ops/csrc/"
@@ -748,8 +1032,18 @@ def main() -> int:
              "B6": ("mean_fidelity_su4_cuda (B6)", "ops/propagate_su4_pallas.py:226",
                     "propagate_su4.cu"),
              "B7": ("propagate_su4_mc_cuda (B7)", "ops/propagate_su4_pallas.py:215",
-                    "propagate_su4.cu")}
-    launches = {"serve": serve_launches, "train": train_launches, "serve-su4": su4_launches}
+                    "propagate_su4.cu"),
+             "B4": ("mean_fidelity_su4_with_product_cuda (B4)",
+                    "ops/propagate_su4_pallas.py:256", "propagate_su4.cu"),
+             "B5": ("su4_objective_vjp_from_product_cuda (B5)",
+                    "ops/propagate_su4_pallas_bwd.py:364", "propagate_su4_bwd.cu")}
+    # each kernel's entry function at pulse width P, as ptxas names it
+    entry = {"B1": "mean_fid_kernelILi{}E", "B2": "propagate_mc_vjp_kernelILi{}E",
+             "B3": "propagate_mc_kernelILi{}E", "B4": "mean_fid_su4_kernelILi{}ELb1E",
+             "B5": "su4_vjp_kernelILi{}E", "B6": "mean_fid_su4_kernelILi{}ELb0E",
+             "B7": "propagate_su4_kernelILi{}E"}
+    launches = {"serve": serve_launches, "train": train_launches, "serve-su4": su4_launches,
+                "train-su4": tq["launches"]}
 
     def row(kid, path, shape, err, ms, plain_ms, bound_):
         name, where, src = names[kid]
@@ -758,7 +1052,8 @@ def main() -> int:
                 "launches": launches[path][kid], "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_[0], "bound_by": bound_[1],
                 "library_ms": None, "path": path,
-                "shape": "B={} L={} P={} M={}".format(*shape)}
+                "shape": "B={} L={} P={} M={}".format(*shape),
+                "ptxas": ptxas_of(ptx, entry[kid].format(shape[2]))}
 
     def fid_row(path, p_, qt_, d_, e_, iters):
         B_, L_, P_ = p_.shape
@@ -831,15 +1126,67 @@ def main() -> int:
                  time_ms(lambda: propagate_su4_mc_cuda(*b7_in, sys4.system), 20),
                  time_ms(lambda: propagate_su4_mc_plain(*b7_in, sys4.system), 3),
                  su4_bound(1, 100, 4, sweep_d1.shape[1], fidelity=False))
+    # B4, B5 and B6 at the two-qubit training shape (the restored model's
+    # pulses on the step's targets and σ_δ = 0.2 draws), each against its
+    # plain version (L = 100 tolerance rule)
+    sysd = sys4.system
+    tr4, ti4 = tq["targets"][:, 0].contiguous(), tq["targets"][:, 1].contiguous()
+    in4 = (tq["pulses"], tr4, ti4, *tq["errors"])
+    in64 = tuple(t.double() for t in in4)
+    B4_, L4, P4 = tq["pulses"].shape
+    M4 = tq["errors"][0].shape[1]
+    shape4 = (B4_, L4, P4, M4)
+    gbar4 = torch.full((B4_,), 1.0 / B4_, device=dev)
+    F_k, prod_k = mean_fidelity_su4_with_product_cuda(*in4, sysd)
+    F_p, prod_p = mean_fidelity_su4_with_product_plain(*in4, sysd)
+    F64, prod64 = mean_fidelity_su4_with_product_plain(*in64, sysd)
+    b4_errs = (max_err(F_k, F_p), max_err(prod_k, prod_p))
+    b4_tols = (max(SU4_FID_TOL[4], 2 * max_err(F_p, F64)),
+               max(SU4_PROD_TOL, 2 * max_err(prod_p, prod64)))
+    if not all(e <= t for e, t in zip(b4_errs, b4_tols)):
+        raise AssertionError(f"B4 at the two-qubit training shape: F, product errors {b4_errs} "
+                             f"beyond {b4_tols}")
+    g_k = su4_objective_vjp_from_product_cuda(*in4, gbar4, prod_k, sysd)
+    g_p = su4_objective_vjp_from_product_plain(*in4, gbar4, prod_p, sysd)
+    g64 = su4_objective_vjp_from_product_plain(*in64, gbar4.double(), None, sysd)
+    e5 = grads_close("B5 at the two-qubit training shape", ("pulses", "delta1", "delta2", "eps"),
+                     (1e-5,) * 4, g_k, g_p, g64)
+    b6_train_err = max_err(mean_fidelity_su4_cuda(*in4, sysd), F_p)
+    if not b6_train_err <= b4_tols[0]:
+        raise AssertionError(f"B6 at the two-qubit training shape: {b6_train_err:.3e} > "
+                             f"{b4_tols[0]:.2e}")
+    b4_row = row("B4", "train-su4", shape4, max(b4_errs),
+                 time_ms(lambda: mean_fidelity_su4_with_product_cuda(*in4, sysd), 20),
+                 time_ms(lambda: mean_fidelity_su4_with_product_plain(*in4, sysd), 2),
+                 su4_bound(*shape4, fidelity=True, product=True))
+    b5_row = row("B5", "train-su4", shape4, e5[0],
+                 time_ms(lambda: su4_objective_vjp_from_product_cuda(*in4, gbar4, prod_k, sysd), 20),
+                 time_ms(lambda: su4_objective_vjp_from_product_plain(*in4, gbar4, prod_p, sysd),
+                         2),
+                 su4_vjp_bound(*shape4))
+    b6_train = row("B6", "train-su4", shape4, b6_train_err,
+                   time_ms(lambda: mean_fidelity_su4_cuda(*in4, sysd), 20),
+                   time_ms(lambda: mean_fidelity_su4_plain(*in4, sysd), 2),
+                   su4_bound(*shape4, fidelity=True))
+    leaf4 = tq["pulses"].clone().requires_grad_(True)
+
+    def fwd_bwd4(fn):
+        return lambda: torch.autograd.grad(fn(leaf4, *in4[1:], sysd), leaf4, gbar4)
+
+    b4_row["fwd_bwd_ms"] = time_ms(fwd_bwd4(mean_fidelity_su4_cuda), 20)
+    b4_row["fwd_bwd_plain_ms"] = time_ms(fwd_bwd4(mean_fidelity_su4_plain), 2)
     kernels = [fid_row("serve", pulses, q_t, delta, eps, 20), b1_train, b2_train,
                prop_row("serve", p1, d1, e1, 20), prop_row("train", pt, dt_, et_, 50),
-               b6_row, b7_row]
+               b6_row, b7_row, b4_row, b5_row, b6_train]
     for k in kernels:
         print(f"  {k['name']} [{k['path']}] {k['shape']}: {k['ms']:.4f} ms, plain "
               f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "
-              f"err {k['max_abs_err']:.2e}, launches {k['launches']}")
+              f"err {k['max_abs_err']:.2e}, launches {k['launches']}, ptxas {k['ptxas']}")
     print(f"  B1 [train] forward + backward {b1_train['fwd_bwd_ms']:.4f} ms, plain "
           f"{b1_train['fwd_bwd_plain_ms']:.3f} ms")
+    print(f"  B4 + B5 [train-su4] forward + backward through mean_fidelity_su4_cuda "
+          f"{b4_row['fwd_bwd_ms']:.4f} ms, plain {b4_row['fwd_bwd_plain_ms']:.3f} ms; B5 vs "
+          f"f64: kernel {e5[1]:.2e}, plain {e5[2]:.2e}")
     phase("time", t0, "CUDA events, after a warm-up")
 
     print(f"total {time.perf_counter() - t_total:.2f} s")

@@ -142,15 +142,17 @@ def test_sample_ore_ple_uses_the_generator():
 
 def test_entry_points_default_to_cuda(tmp_path):
     """``resolve_device``, the ``Trainer``, ``build_su2_dataset``, the
-    training CLI, the two-qubit eval CLI and its model loader, and the SU(4)
+    training CLIs, the two-qubit eval CLI and its model loader, and the SU(4)
     grid and sweep run on CUDA unless given the CPU, and raise where there
     is no CUDA; none moves to the CPU by itself.  The eval CLI scores with
-    ``SU4System(backend="pallas")``, kernel B6."""
+    ``SU4System(backend="pallas")``, kernel B6; the two-qubit training CLI
+    trains through B4 and B5 and keeps the JAX CLI's ``--max_pulses`` 40."""
     from universal_quantum_optimal_control_tpu_torch.analysis import (fidelity_by_std_su4,
                                                                       fidelity_grid_su4)
     from universal_quantum_optimal_control_tpu_torch.data import build_su2_dataset
     from universal_quantum_optimal_control_tpu_torch.training import SU4System, Trainer
-    from universal_quantum_optimal_control_tpu_torch.workloads import (two_qubit_eval,
+    from universal_quantum_optimal_control_tpu_torch.workloads import (two_qubit,
+                                                                       two_qubit_eval,
                                                                        universal_single_qubit)
 
     model = torch.nn.Linear(4, 2)
@@ -158,6 +160,9 @@ def test_entry_points_default_to_cuda(tmp_path):
     argv = ["--num_epoch", "1", "--save_path", str(tmp_path / "run")]
     eval_args = two_qubit_eval.build_parser().parse_args([])
     assert (eval_args.device, eval_args.backend) == ("cuda", "pallas")
+    train2_args = two_qubit.build_parser().parse_args([])
+    assert (train2_args.device, train2_args.backend, train2_args.max_pulses) == \
+        ("cuda", "pallas", 40)
     pulses = torch.zeros(3, 4)
     cz = torch.diag(torch.tensor([1.0, 1.0, 1.0, -1.0])).numpy()
     if torch.cuda.is_available():
@@ -166,6 +171,7 @@ def test_entry_points_default_to_cuda(tmp_path):
         for call in (resolve_device, lambda: Trainer(model),
                      lambda: build_su2_dataset(gen, 16),
                      lambda: universal_single_qubit.main(argv),
+                     lambda: two_qubit.main(["--save_path", str(tmp_path / "run2")]),
                      lambda: two_qubit_eval.main(["--out", str(tmp_path / "eval.md")]),
                      lambda: two_qubit_eval.load_two_qubit_model(two_qubit_eval.DEFAULT_CKPT),
                      lambda: two_qubit_eval.best_phase_pulses(
@@ -174,7 +180,7 @@ def test_entry_points_default_to_cuda(tmp_path):
                      lambda: fidelity_by_std_su4(pulses, cz, monte_carlo=4)):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 call()
-        assert not (tmp_path / "run").exists() and not (tmp_path / "eval.md").exists()
+        assert not any((tmp_path / f).exists() for f in ("run", "run2", "eval.md"))
     assert resolve_device("cpu").type == "cpu"
     assert Trainer(model, device="cpu").device.type == "cpu"
     rv, q = build_su2_dataset(gen, 16, device="cpu")

@@ -1,7 +1,8 @@
-"""PyTorch port on a CUDA card: the hand-written kernels B1, B2, B3, B6 and
-B7 against their plain versions, their input checks and their launch
-counters, and B1's backward (B3 + B2) against autograd through its plain
-version.
+"""PyTorch port on a CUDA card: the hand-written kernels B1, B2, B3, B4,
+B5, B6 and B7 against their plain versions, their input checks and their
+launch counters, B1's backward (B3 + B2) against autograd through its plain
+version, and the SU(4) mean fidelity's backward (B4 + B5) against autograd
+through its plain version.
 
 This file imports nothing of JAX, so it also runs where JAX is absent:
 
@@ -237,6 +238,88 @@ def test_su4_inputs_are_checked_not_converted(card):
         t4.propagate_su4_mc_cuda(pulses, d1.double(), d2, ep, sys_)
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
         t4.mean_fidelity_su4_cuda(pulses, tr.cpu(), ti, d1, d2, ep, sys_)
-    with pytest.raises(NotImplementedError, match="A.14"):
-        t4.mean_fidelity_su4_cuda(pulses.clone().requires_grad_(True), tr, ti, d1, d2, ep, sys_)
+    with pytest.raises(NotImplementedError, match="no VJP"):
+        t4.propagate_su4_mc_cuda(pulses.clone().requires_grad_(True), d1, d2, ep, sys_)
     assert (t4.propagate_su4_mc_cuda.launches, t4.mean_fidelity_su4_cuda.launches) == before
+
+
+# SU(4) training: B4 (B6 with the per-sample product) and B5 (the
+# product-seeded reverse sweep) against their plain versions, at the JAX
+# suite's tolerances (tests/test_su4_pallas.py, tests/test_su4_pallas_bwd.py):
+# products 2e-5, fidelities 1e-5 (2e-5 drive2), gradients 1e-5 abs.
+
+SU4_GRAD_TOL = 1e-5
+
+
+def su4_gbar(B, dev):
+    """A non-uniform per-target cotangent (the CVaR path)."""
+    return torch.linspace(0.2, 1.8, B, device=dev)
+
+
+@pytest.mark.parametrize("P", [2, 3, 4])
+@pytest.mark.parametrize("M", [1, 200])  # ragged: no multiple of the block
+def test_su4_training_kernels_match_plain(card, P, M):
+    pulses, tr, ti, d1, d2, ep, sys_ = su4_inputs(P, M, card)
+    F, prod = t4.mean_fidelity_su4_with_product_cuda(pulses, tr, ti, d1, d2, ep, sys_)
+    gbar = su4_gbar(3, card)
+    got = t4.su4_objective_vjp_from_product_cuda(pulses, tr, ti, d1, d2, ep, gbar, prod, sys_)
+    torch.cuda.synchronize()
+    F_p, prod_p = t4.mean_fidelity_su4_with_product_plain(pulses, tr, ti, d1, d2, ep, sys_)
+    torch.testing.assert_close(F, F_p, atol=SU4_FID_TOL[P], rtol=0)
+    torch.testing.assert_close(prod, prod_p, atol=2e-5, rtol=0)
+    want = t4.su4_objective_vjp_from_product_plain(pulses, tr, ti, d1, d2, ep, gbar, prod, sys_)
+    assert got[0].shape == (3, 7, P)
+    for name, a, b in zip(("pulses", "delta1", "delta2", "eps"), got, want):
+        torch.testing.assert_close(a, b, atol=SU4_GRAD_TOL, rtol=0, msg=name)
+
+
+def test_su4_backward_runs_b4_and_b5_once(card):
+    pulses, tr, ti, d1, d2, ep, sys_ = su4_inputs(4, 300, card)
+    gbar = su4_gbar(3, card)
+    leaves = [t.clone().requires_grad_(True) for t in (pulses, d1, d2, ep)]
+    counts = lambda: (t4.mean_fidelity_su4_cuda.launches,  # noqa: E731
+                      t4.mean_fidelity_su4_with_product_cuda.launches,
+                      t4.su4_objective_vjp_from_product_cuda.launches,
+                      t4.propagate_su4_mc_cuda.launches)
+    before = counts()
+    F = t4.mean_fidelity_su4_cuda(leaves[0], tr, ti, *leaves[1:], sys_)
+    got = torch.autograd.grad(F, leaves, gbar)
+    assert counts() == (before[0], before[1] + 1, before[2] + 1, before[3])
+    ref = [t.clone().requires_grad_(True) for t in (pulses, d1, d2, ep)]
+    want = torch.autograd.grad(t4.mean_fidelity_su4_plain(ref[0], tr, ti, *ref[1:], sys_),
+                               ref, gbar)
+    for name, a, b in zip(("pulses", "delta1", "delta2", "eps"), got, want):
+        torch.testing.assert_close(a, b, atol=SU4_GRAD_TOL, rtol=0, msg=name)
+
+
+def test_su4_no_gradient_runs_b6_only(card):
+    pulses, tr, ti, d1, d2, ep, sys_ = su4_inputs(4, 64, card)
+    leaf = pulses.clone().requires_grad_(True)
+    before = (t4.mean_fidelity_su4_cuda.launches, t4.mean_fidelity_su4_with_product_cuda.launches,
+              t4.su4_objective_vjp_from_product_cuda.launches)
+    with torch.no_grad():
+        t4.mean_fidelity_su4_cuda(leaf, tr, ti, d1, d2, ep, sys_)
+    t4.mean_fidelity_su4_cuda(pulses, tr, ti, d1, d2, ep, sys_)
+    assert (t4.mean_fidelity_su4_cuda.launches, t4.mean_fidelity_su4_with_product_cuda.launches,
+            t4.su4_objective_vjp_from_product_cuda.launches) == \
+        (before[0] + 2, before[1], before[2])
+
+
+def test_su4_training_inputs_are_checked_not_converted(card):
+    pulses, tr, ti, d1, d2, ep, sys_ = su4_inputs(4, 64, card)
+    F, prod = t4.mean_fidelity_su4_with_product_cuda(pulses, tr, ti, d1, d2, ep, sys_)
+    gbar = su4_gbar(3, card)
+    before = t4.su4_objective_vjp_from_product_cuda.launches
+    with pytest.raises(ValueError, match="prod must be"):
+        t4.su4_objective_vjp_from_product_cuda(pulses, tr, ti, d1, d2, ep, gbar,
+                                               prod[:, :, :10].contiguous(), sys_)
+    with pytest.raises(ValueError, match="gbar must be"):
+        t4.su4_objective_vjp_from_product_cuda(pulses, tr, ti, d1, d2, ep, gbar[:2], prod, sys_)
+    with pytest.raises(TypeError, match="float32"):
+        t4.su4_objective_vjp_from_product_cuda(pulses, tr, ti, d1, d2, ep, gbar.double(), prod,
+                                               sys_)
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        t4.su4_objective_vjp_from_product_cuda(pulses, tr, ti, d1, d2, ep, gbar, prod.cpu(), sys_)
+    with pytest.raises(TypeError, match="float32"):
+        t4.mean_fidelity_su4_with_product_cuda(pulses.double(), tr, ti, d1, d2, ep, sys_)
+    assert t4.su4_objective_vjp_from_product_cuda.launches == before

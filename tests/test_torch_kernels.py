@@ -192,8 +192,9 @@ def test_build_is_one_nvcc_call_into_an_ignored_directory():
     assert "-gencode arch=compute_90a,code=sm_90a" in flags
     assert "-shared" in flags and "-Xcompiler -fPIC" in flags and "-O3" in flags
     assert "--use_fast_math" not in flags  # sincosf stays accurate
-    # one nvcc call per source (su2: B1, B2, B3; su4: B6, B7), started together
-    assert set(_build.SOURCES) == {"su2", "su4"}
+    # one nvcc call per source (su2: B1, B2, B3; su4: B4, B6, B7; su4_bwd:
+    # B5), started together
+    assert set(_build.SOURCES) == {"su2", "su4", "su4_bwd"}
     for name, src in _build.SOURCES.items():
         assert src.exists()
         assert _build.library_path(name) == REPO / "build" / "torch_kernels" / f"libuqoc_{name}.so"

@@ -315,6 +315,7 @@ def test_port_import_loads_no_jax():
         "        'training.resume', 'training.metrics', 'workloads.universal_single_qubit',\n"
         "        'core.su4', 'ops.propagate_su4', 'data.su4_targets', 'models.two_qubit',\n"
         "        'optimizers.two_qubit_grape', 'workloads.two_qubit_eval',\n"
+        "        'workloads.two_qubit',\n"
         "        'analysis.plots_su4']\n"
         "missing = [m for m in need if p.__name__ + '.' + m not in sys.modules]\n"
         "print(bad, missing)\n"

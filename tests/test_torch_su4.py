@@ -187,25 +187,34 @@ def test_kernel_input_checks():
 
 
 def test_wrappers_count_no_launch_on_cpu_and_refuse_gradients():
+    """On CPU tensors no wrapper launches or counts.  B7 refuses a gradient
+    on either route (the JAX ``propagate_su4_mc_pallas`` has no VJP); B6's
+    route differentiates (its backward is B5, here the plain version) and
+    gives the plain path's gradient."""
     pulses, d1, d2, ep, Tr, Ti = t(*case(2, M=16))
-    before = (tk.propagate_su4_mc_cuda.launches, tk.mean_fidelity_su4_cuda.launches)
+    counters = (tk.propagate_su4_mc_cuda, tk.mean_fidelity_su4_cuda,
+                tk.mean_fidelity_su4_with_product_cuda, tk.su4_objective_vjp_from_product_cuda)
+    before = tuple(c.launches for c in counters)
     tk.propagate_su4_mc_cuda(pulses, d1, d2, ep)
     tk.mean_fidelity_su4_cuda(pulses, Tr, Ti, d1, d2, ep)
-    assert (tk.propagate_su4_mc_cuda.launches, tk.mean_fidelity_su4_cuda.launches) == before
     leaf = pulses.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="A.14"):
+    with pytest.raises(NotImplementedError, match="no VJP"):
         tk.propagate_su4_mc_cuda(leaf, d1, d2, ep)
-    with pytest.raises(NotImplementedError, match="A.14"):
-        tk.mean_fidelity_su4_cuda(leaf, Tr, Ti, d1, d2, ep)
-    with torch.no_grad():  # no gradient asked for: runs
-        tk.mean_fidelity_su4_cuda(leaf, Tr, Ti, d1, d2, ep)
+    F = tk.mean_fidelity_su4_cuda(leaf, Tr, Ti, d1, d2, ep)
+    (g_k,) = torch.autograd.grad(F.sum(), leaf)
+    with torch.no_grad():  # no gradient asked for: B7 runs
+        tk.propagate_su4_mc_cuda(leaf, d1, d2, ep)
     packed = torch.stack([Tr, Ti], dim=1)
-    with pytest.raises(NotImplementedError, match="A.14"):
-        SU4System(backend="pallas").local_mean_fidelity(leaf, packed, (d1, d2, ep))
-    # the plain path differentiates: d E[F] / d pulses, finite
+    F = SU4System(backend="pallas").local_mean_fidelity(leaf, packed, (d1, d2, ep))
+    (g_s,) = torch.autograd.grad(F.sum(), leaf)
+    assert tuple(c.launches for c in counters) == before
+    # the plain path differentiates: d E[F] / d pulses, finite, and the
+    # kernels' route gives the same gradient
     F = SU4System(backend="xla").local_mean_fidelity(leaf, packed, (d1, d2, ep))
     (g,) = torch.autograd.grad(F.sum(), leaf)
     assert g.shape == pulses.shape and bool(torch.isfinite(g).all())
+    torch.testing.assert_close(g_k, g, rtol=0, atol=1e-7)
+    torch.testing.assert_close(g_s, g, rtol=0, atol=1e-7)
     with pytest.raises(NotImplementedError, match="order-8"):
         sys_ = SU4System(backend="pallas")
         sys_.system = sys_.system._replace(expm_order=6)

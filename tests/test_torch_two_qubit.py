@@ -247,7 +247,7 @@ def test_eval_cli_on_the_cpu(tmp_path):
     assert "| cz |" in out.read_text()
     with np.load(npz) as z:
         assert z["pulses_0"].shape == (100, 4)
-    with pytest.raises(NotImplementedError, match="A.14"):
+    with pytest.raises(NotImplementedError, match="A.16"):
         te.main(argv + ["--polish"])
     with pytest.raises(ValueError, match=r"\.npz"):
         te.load_two_qubit_model("weights/dir:tag", device="cpu")

@@ -3,9 +3,10 @@ canonicalization, the model's KAK input tokens and the ℤ₄ phase
 representatives (port of the JAX package's ``data/su4_targets.py``).
 
 Host numpy (complex128) only, as in the JAX package, which the port may not
-import; this is its own copy of the serving half.  The training-set
-builders (``haar_su2``, ``kak_targets``, ``random_global_phase``) come with
-the two-qubit training slice (``ROADMAP.md`` A.15).
+import; this is its own copy.  The training-set builders (:func:`haar_su2`,
+:func:`kak_targets`, :func:`random_global_phase`) draw from a
+``numpy.random.Generator`` in the JAX package's order, so the same seed
+gives the same arrays bit for bit.
 
 Why the model needs them (JAX ``docs/two_qubit_results.md``): entanglement
 fidelity is phase-invariant but the raw matrix featurization is not, so
@@ -20,7 +21,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["z4_representatives", "kak_decompose", "kak_reconstruct",
+__all__ = ["haar_su2", "kak_targets", "random_global_phase",
+           "z4_representatives", "kak_decompose", "kak_reconstruct",
            "kak_canonicalize", "kak_input_tokens"]
 
 _X = np.array([[0, 1], [1, 0]], np.complex128)
@@ -29,6 +31,16 @@ _Z = np.array([[1, 0], [0, -1]], np.complex128)
 _XX = np.kron(_X, _X)
 _YY = np.kron(_Y, _Y)
 _ZZ = np.kron(_Z, _Z)
+
+
+def haar_su2(rng: np.random.Generator, n: int) -> np.ndarray:
+    """``(n, 2, 2)`` Haar-random SU(2) via normalized quaternions."""
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    w, x, y, z = q.T
+    return np.stack([
+        np.stack([w + 1j * z, y + 1j * x], -1),
+        np.stack([-y + 1j * x, w - 1j * z], -1)], -2)
 
 
 def _cartan_exp(c: np.ndarray) -> np.ndarray:
@@ -42,6 +54,41 @@ def _cartan_exp(c: np.ndarray) -> np.ndarray:
         w, v = np.linalg.eigh(c1 * _XX + c2 * _YY + c3 * _ZZ)
         out[i] = (v * np.exp(-1j * w)) @ v.conj().T
     return out
+
+
+def kak_targets(rng: np.random.Generator, n: int,
+                c_max: float = np.pi / 4,
+                edge_frac: float = 0.0) -> np.ndarray:
+    """``(n, 4, 4)`` SU(4) targets with uniform Weyl-chamber-box coverage:
+    ``(A₁⊗A₂) · exp(−i Σ cₖ σₖσₖ) · (B₁⊗B₂)``, cₖ ~ U(0, c_max) sorted
+    descending (c₁ ≥ c₂ ≥ c₃ ≥ 0), so the CZ/CNOT edge (π/4, 0, 0) and the
+    iSWAP edge (π/4, π/4, 0) are neighbourhoods of positive density.
+
+    ``edge_frac``: the fraction of samples whose Cartan coordinates are drawn
+    from the U-shaped Beta(0.3, 0.3) instead, which puts mass at the
+    chamber's corners and edges (iSWAP's corner needs two coordinates at
+    the top and one at the bottom at once)."""
+    c = rng.uniform(0.0, 1.0, size=(n, 3))
+    n_edge = int(n * edge_frac)
+    if n_edge:
+        c[:n_edge] = rng.beta(0.3, 0.3, size=(n_edge, 3))
+    c = np.sort(c * c_max, axis=1)[:, ::-1]
+    A1, A2 = haar_su2(rng, n), haar_su2(rng, n)
+    B1, B2 = haar_su2(rng, n), haar_su2(rng, n)
+    core = _cartan_exp(c)
+    kA = np.einsum("nab,ncd->nacbd", A1, A2).reshape(n, 4, 4)
+    kB = np.einsum("nab,ncd->nacbd", B1, B2).reshape(n, 4, 4)
+    return kA @ core @ kB
+
+
+def random_global_phase(rng: np.random.Generator,
+                        U: np.ndarray) -> np.ndarray:
+    """Multiply each target by a random global phase e^{iθ}, θ ~ U(0, 2π):
+    physics-neutral (the entanglement fidelity is phase-invariant), it
+    teaches the raw-matrix featurization that invariance — the training
+    side of :func:`z4_representatives`."""
+    theta = rng.uniform(0.0, 2.0 * np.pi, size=U.shape[0])
+    return U * np.exp(1j * theta)[:, None, None]
 
 
 def z4_representatives(U: np.ndarray) -> np.ndarray:

@@ -9,6 +9,10 @@ from .propagate_su2 import (  # noqa: F401
 from .propagate_su4 import (  # noqa: F401
     mean_fidelity_su4_cuda,
     mean_fidelity_su4_plain,
+    mean_fidelity_su4_with_product_cuda,
+    mean_fidelity_su4_with_product_plain,
     propagate_su4_mc_cuda,
     propagate_su4_mc_plain,
+    su4_objective_vjp_from_product_cuda,
+    su4_objective_vjp_from_product_plain,
 )

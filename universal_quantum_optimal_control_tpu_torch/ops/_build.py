@@ -2,8 +2,9 @@ r"""Build and load the port's CUDA kernels: one ``nvcc`` call per source,
 bound by ctypes.
 
 Each source under ``ops/csrc/`` (``propagate_su2.cu``: B1, B2, B3;
-``propagate_su4.cu``: B6, B7; both include ``common.cuh``) is compiled for
-``sm_90a`` into a shared library with a plain C interface,
+``propagate_su4.cu``: B4, B6, B7; ``propagate_su4_bwd.cu``: B5; all include
+``common.cuh``, the SU(4) two ``su4.cuh``) is compiled for ``sm_90a`` into
+a shared library with a plain C interface,
 ``build/torch_kernels/libuqoc_<name>.so`` at the root of the checkout.  No
 source includes a PyTorch header, so a build takes seconds, and the
 ``nvcc`` calls of all stale libraries run at once.  A build runs at first
@@ -27,7 +28,8 @@ __all__ = ["NVCC_FLAGS", "SOURCES", "library_path", "build_libraries", "load_lib
            "raise_on"]
 
 CSRC = Path(__file__).parent / "csrc"
-SOURCES = {"su2": CSRC / "propagate_su2.cu", "su4": CSRC / "propagate_su4.cu"}
+SOURCES = {"su2": CSRC / "propagate_su2.cu", "su4": CSRC / "propagate_su4.cu",
+           "su4_bwd": CSRC / "propagate_su4_bwd.cu"}
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -125,14 +127,27 @@ def _declare_su4(lib: ctypes.CDLL) -> None:
     lib.uqoc_su4_mean_fidelity.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i64, f32, f32, i32, ptr]
     lib.uqoc_su4_mean_fidelity.restype = i32
+    lib.uqoc_su4_mean_fidelity_with_product.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i64, f32, f32, i32, ptr]
+    lib.uqoc_su4_mean_fidelity_with_product.restype = i32
 
 
-_DECLARE = {"su2": _declare_su2, "su4": _declare_su4}
+def _declare_su4_bwd(lib: ctypes.CDLL) -> None:
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    lib.uqoc_su4_vjp_num_blocks.argtypes = [i64]
+    lib.uqoc_su4_vjp_num_blocks.restype = i32
+    lib.uqoc_su4_objective_vjp.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        i32, i32, i32, i64, f32, f32, i32, ptr]
+    lib.uqoc_su4_objective_vjp.restype = i32
+
+
+_DECLARE = {"su2": _declare_su2, "su4": _declare_su4, "su4_bwd": _declare_su4_bwd}
 
 
 def load_library(name: str) -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C signatures
-    of library ``name`` (``"su2"`` or ``"su4"``)."""
+    of library ``name`` (``"su2"``, ``"su4"`` or ``"su4_bwd"``)."""
     with _lock:
         if name not in _libs:
             build_libraries([name])

@@ -1,12 +1,19 @@
-// What both sources share: the error-string export, and the deterministic
+// What the sources share: the error-string export, the deterministic
 // per-target mean over Monte-Carlo samples of the fidelity kernels B1
-// (propagate_su2.cu) and B6 (propagate_su4.cu).
+// (propagate_su2.cu), B6 and B4 (propagate_su4.cu), and the deterministic
+// per-target sum of the reverse sweeps' pulse cotangents, B2
+// (propagate_su2.cu) and B5 (propagate_su4_bwd.cu).
 //
-// Pass 1 (inside the fidelity kernel): block_sum adds each block's samples
-// in a fixed order (warp shuffles, then the warps' sums), and thread 0
-// writes one partial per block.  Pass 2: reduce_partials_kernel sums a
-// target's partials in double, in a fixed order, and divides by M.  No
-// atomics, so the result is the same from run to run.
+// Mean, pass 1 (inside the fidelity kernel): block_sum adds each block's
+// samples in a fixed order (warp shuffles, then the warps' sums), and thread
+// 0 writes one partial per block.  Pass 2: reduce_partials_kernel sums a
+// target's partials in double, in a fixed order, and divides by M.
+//
+// Pulse cotangents, pass 1 (inside the sweep): warp_sum per segment and
+// channel into the warp's slot of a shared [warps][L * P] buffer, then a
+// fixed-order sum over the warps into one partial per block.  Pass 2:
+// reduce_columns_kernel sums a target's block partials in double, in block
+// order.  No atomics anywhere, so every result is the same from run to run.
 
 #pragma once
 
@@ -38,7 +45,14 @@ __device__ __forceinline__ float block_sum(float f) {
   return f;
 }
 
-// Pass 2: grid (B); out[b] = sum of partials[b, :n] / M, summed in double.
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Pass 2 of the mean: grid (B); out[b] = sum of partials[b, :n] / M, summed
+// in double.
 template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
 reduce_partials_kernel(const float* __restrict__ partials, int n,
@@ -55,6 +69,22 @@ reduce_partials_kernel(const float* __restrict__ partials, int n,
     __syncthreads();
   }
   if (threadIdx.x == 0) out[b] = static_cast<float>(sums[0] / M);
+}
+
+// Pass 2 of the pulse cotangents: grid (ceil(lp / kThreads), B);
+// out[b, j] = the sum of partials[b, :, j] over the nblocks blocks, in
+// double, in block order.
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads)
+reduce_columns_kernel(const float* __restrict__ partials, int nblocks, int lp,
+                      float* __restrict__ out) {
+  const int b = blockIdx.y;
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j >= lp) return;
+  const float* src = partials + static_cast<int64_t>(b) * nblocks * lp + j;
+  double s = 0.0;
+  for (int x = 0; x < nblocks; ++x) s += src[static_cast<int64_t>(x) * lp];
+  out[static_cast<int64_t>(b) * lp + j] = static_cast<float>(s);
 }
 
 }  // namespace uqoc

@@ -7,7 +7,7 @@
 //       -> mean_fid_kernel + reduce_partials_kernel: per-target mean
 //          entanglement fidelity F = (4<q, q_t>^2 + 2) / 6, (B,).
 //   B2  universal_quantum_optimal_control_tpu/ops/propagate_pallas_bwd.py:_bwd_kernel
-//       -> propagate_mc_vjp_kernel + reduce_vjp_partials_kernel: the VJP of
+//       -> propagate_mc_vjp_kernel + reduce_columns_kernel: the VJP of
 //          B3 with O(1) residuals (see the B2 section below).
 //
 // What bounds them on an H100: arithmetic.  Each (target b, sample m) is an
@@ -251,12 +251,6 @@ __device__ __forceinline__ Segment segment(const float* row, int L, int k,
   return g;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
 // Floats of the staged pulse row (see stage_row).
 __host__ __device__ inline size_t row_floats(int L, int P) {
   return static_cast<size_t>(L) * (P == 2 ? 3 : P + 1);
@@ -334,7 +328,7 @@ propagate_mc_vjp_kernel(const float* __restrict__ pulses,
     if constexpr (P == 4) v[2] = ddel;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      const float t = warp_sum(v[p]);
+      const float t = uqoc::warp_sum(v[p]);
       if (lane0) red_w[k * P + p] = t;
     }
     gl = hamilton(cq, gl);
@@ -352,20 +346,6 @@ propagate_mc_vjp_kernel(const float* __restrict__ pulses,
     for (int w = 0; w < kWarps; ++w) s += red[w * lp + j];
     out[j] = s;
   }
-}
-
-// B2, pass 2: grid (ceil(L * P / kThreads), B); dpulses[b, j] = the sum of
-// partials[b, :, j], in double, in block order.
-__global__ void __launch_bounds__(kThreads)
-reduce_vjp_partials_kernel(const float* __restrict__ partials, int nblocks,
-                           int lp, float* __restrict__ dpulses) {
-  const int b = blockIdx.y;
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  if (j >= lp) return;
-  const float* src = partials + static_cast<int64_t>(b) * nblocks * lp + j;
-  double s = 0.0;
-  for (int x = 0; x < nblocks; ++x) s += src[static_cast<int64_t>(x) * lp];
-  dpulses[static_cast<int64_t>(b) * lp + j] = static_cast<float>(s);
 }
 
 inline unsigned int num_blocks(int64_t M) {
@@ -496,7 +476,7 @@ cudaError_t uqoc_su2_propagate_mc_vjp(const float* pulses, const float* delta,
   if (err != cudaSuccess) return err;
   const int lp = L * P;
   const dim3 grid2((lp + kThreads - 1) / kThreads, B);
-  reduce_vjp_partials_kernel<<<grid2, kThreads, 0, s>>>(
+  uqoc::reduce_columns_kernel<kThreads><<<grid2, kThreads, 0, s>>>(
       partials, static_cast<int>(grid.x), lp, dpulses);
   return cudaGetLastError();
 }

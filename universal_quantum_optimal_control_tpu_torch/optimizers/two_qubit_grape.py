@@ -1,8 +1,7 @@
 r"""Named two-qubit benchmark gates (port of ``optimizers/two_qubit_grape.py``).
 
 Only :func:`named_two_qubit_targets` is ported: the multi-start GRAPE
-optimizer trains, so it comes with the training kernels B4 and B5
-(``ROADMAP.md`` A.14, A.16).
+optimizer is ``ROADMAP.md`` A.16.
 """
 
 from __future__ import annotations

@@ -2,8 +2,7 @@ r"""The systems the trainer drives (port of ``training/systems.py``).
 
 A *system* samples its disorder channels and scores a pulse batch against
 its targets: :class:`SU2System` (single qubit) and :class:`SU4System` (two
-qubits; scoring only on its ``"pallas"`` backend until the training
-kernels B4 and B5 land, ``ROADMAP.md`` A.14).  Only the unsharded
+qubits).  Both train on either backend.  Only the unsharded
 (``mesh=None``) objectives are ported; the mesh waits for ``ROADMAP.md``
 A.17.
 """
@@ -75,8 +74,9 @@ class SU4System:
     into ``(B, 2, 4, 4)``.
 
     ``backend``: "xla" (the eager plain path, differentiable by autograd)
-    or "pallas" (kernel B6, which has no backward yet: under autograd it
-    raises, naming ``ROADMAP.md`` A.14).
+    or "pallas" (kernel B6; under autograd B4 forward and B5 backward, as
+    the JAX package's ``mean_fidelity_su4_trainable``).  The kernels
+    hard-code the order-8 exponential: another ``expm_order`` raises.
     """
 
     def __init__(self, xtalk: float = 0.1, coupling: float = 0.5,

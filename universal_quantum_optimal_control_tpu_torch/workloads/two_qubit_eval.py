@@ -14,8 +14,8 @@ except:
   not carry the main path on a card.  ``--backend xla`` stays for
   comparison.
 * ``--device`` (default ``cuda``; the CPU tests pass ``cpu``).
-* ``--polish`` (multi-start GRAPE training per gate) raises: it needs the
-  training kernels B4 and B5 (``ROADMAP.md`` A.14, A.16).
+* ``--polish`` (multi-start GRAPE training per gate) raises: the
+  two-qubit GRAPE optimizer is not ported yet (``ROADMAP.md`` A.16).
 * The checkpoint is a shipped ``.npz`` artifact (read where it lies in the
   JAX package's ``demo/weights/``); Orbax ``dir:tag`` checkpoints are the
   JAX package's own.
@@ -162,8 +162,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--monte_carlo", type=int, default=20_000)
     p.add_argument("--epsilon_std", type=float, default=0.05)
     p.add_argument("--polish", action="store_true",
-                   help="per-gate multi-start GRAPE; not ported yet (needs the "
-                        "training kernels B4 and B5, ROADMAP.md A.14/A.16): raises")
+                   help="per-gate multi-start GRAPE; not ported yet "
+                        "(ROADMAP.md A.16): raises")
     p.add_argument("--out", default=None,
                    help="write the markdown table here as well")
     p.add_argument("--save_pulses", default=None,
@@ -201,8 +201,9 @@ def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     if args.polish:
         raise NotImplementedError(
-            "--polish runs per-gate multi-start GRAPE training, which needs the "
-            "SU(4) training kernels B4 and B5 (ROADMAP.md A.14, A.16)")
+            "--polish runs per-gate multi-start GRAPE training "
+            "(optimizers/two_qubit_grape.py::multistart_grape_su4), which is not "
+            "ported yet (ROADMAP.md A.16)")
     dev = resolve_device(args.device)
     sigmas = [float(s) for s in args.sigmas.split(",")]
     system = SU4System(drive2=args.drive2, backend=args.backend)
