@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
 r"""Smoke run of the PyTorch port on one CUDA card: build, check, serve,
-score, train, and the two-qubit serving and training paths, then time.
+score, train, the two-qubit serving, training and per-gate paths, then time.
 
     python3 chip_smoke.py
 
-Twelve phases, each printing its own line with its seconds:
+Fifteen phases, each printing its own line with its seconds:
 
 1. device: the card, torch and CUDA versions, ``nvidia-smi`` name and power limit;
 2. build: one ``nvcc`` call per source, started together
    (``ops/csrc/propagate_su2.cu``: B1, B2, B3; ``propagate_su4.cu``: B4,
-   B6, B7; ``propagate_su4_bwd.cu``: B5), with ptxas' registers and spills
-   per kernel;
+   B6, B7; ``propagate_su4_bwd.cu``: B5, B8), with ptxas' registers and
+   spills per kernel;
 3. check: kernels B1 (mean fidelity), B3 (per-sample product) and B2 (the
    VJP of B3) against their plain PyTorch versions on the card, P ∈ {2, 3,
    4}, L ∈ {1, 7, 100}, M ∈ {1000, 2¹⁶}, plus B2 at L = 400, P = 4; and the
@@ -20,10 +20,11 @@ Twelve phases, each printing its own line with its seconds:
    fidelity) against their plain versions, P ∈ {2, 3, 4 (drive2)},
    L ∈ {1, 7, 100}, M ∈ {200, 2¹⁴}; at L = 100 also against the plain
    version in f64;
-5. check-su4-train: kernels B4 (B6 with each sample's product) and B5 (the
-   product-seeded reverse sweep) against their plain versions, B5 under a
-   non-uniform per-target cotangent, P ∈ {2, 3, 4}, L ∈ {3, 7, 100},
-   M ∈ {1, 200, 1000};
+5. check-su4-train: kernels B4 (B6 with each sample's product), B5 (the
+   product-seeded reverse sweep) and B8 (the sweep that forms the product
+   itself) against their plain versions, B5 and B8 under a non-uniform
+   per-target cotangent, P ∈ {2, 3, 4}, L ∈ {3, 7, 100}, M ∈ {1, 200,
+   1000}; B8 also against B5 seeded by B4 on the same inputs;
 6. serve: the ``length_100`` flagship (d512 × 8 layers, 16 heads, L = 100,
    P = 2) from its shipped ``.npz``, in bf16 (as the JAX demo serves) and
    f32, for the 5 named gates plus 3 random targets;
@@ -50,20 +51,40 @@ Twelve phases, each printing its own line with its seconds:
     2 epochs of 2 steps, its eval E[F] held above 0.85; then one step's
     gradient through ``pallas`` against ``xla`` at that width and M, ms per
     step of each, and a profile of pallas steps;
-12. time: each kernel at the shape of each path that runs it (B1 and B3
-    serving and training, B2 training, B6 and B7 two-qubit serving, B4, B5
-    and B6 two-qubit training) with CUDA events, beside its plain version,
-    its bound and its ptxas registers, spills and stack; one row of the
-    ``kernels`` line per kernel and path, with that path's launches.
+12. grape-su4: the two-qubit GRAPE CLI (``workloads/two_qubit_grape.py``):
+    CZ on the drive2 system, blocks mode, 10 blocks, 24 starts, σ
+    curriculum 0.1, 0.2 at M = 128, the steps per stage cut to
+    ``GRAPE_STEPS``; stage 0's best exact F held at ≥ 0.99, its robustness
+    curve (M = 4096) through B7; ms per GRAPE step and its profile;
+13. polish-su4: the per-gate finetune CLI
+    (``workloads/finetune_two_qubit_gates.py``) at full width: the
+    flagship's best-of-ℤ₄ tables of the 5 named gates polished through B4
+    and B5 (σ mix 0, 0.1, 0.2, M = 4096, lr 3e-3, the JAX CLI's 1500
+    steps), blocks GRAPE candidates (steps cut), the candidates
+    scored through B6 at M = 20 000, σ ∈ {0, 0.1, 0.2, 0.3}; each gate's
+    chosen table held no worse than the model's, the bundle read back;
+    ms per polish step and its profile;
+14. serve-su4-variants: the shipped ``two_qubit_gates.npz`` bundle's five
+    L = 40 tables scored through B6 (σ ∈ {0, 0.1, 0.2, 0.3}, M = 20 000)
+    against the JAX package's CPU table, and the ``cz_robust`` and
+    ``cz_drive2`` E[F](σ_δ) sweeps (``demo/app.py``) through B7 against
+    the JAX package's CPU sweep;
+15. time: each kernel at the shape of each path that runs it, with CUDA
+    events, beside its plain version, its bound and its ptxas registers,
+    spills and stack; one row of the ``kernels`` line per kernel and path,
+    with that path's launches.
 
 Phases 6–7 are the single-qubit serving path, phase 8's CLI run the
-training path, phases 9–10 the two-qubit serving path and phase 11's CLI
-run the two-qubit training path; the kernels' launch counters are set to 0
-just before each and read just after, and every kernel of the path must
-have been launched there.  Any failure raises and the run exits nonzero.
-The line before the last is the card's ``nvidia-smi`` name and power
-limit; the last line is ``{"ok": true, "device": {...}}``.  Exits nonzero
-without a result where CUDA is unavailable.
+training path, phases 9–10 the two-qubit serving path, phase 11's CLI run
+the two-qubit training path, phases 12–13 the two-qubit per-gate paths
+(GRAPE, polish) and phase 14 the two-qubit demo variants; the kernels'
+launch counters are set to 0 just before each and read just after, and
+every kernel of the path must have been launched there.  No path runs B8
+(the JAX package has no caller of its ``_bwd_kernel`` either): its row
+reports phase 5's launches.  Any failure raises and the run exits
+nonzero.  The line before the last is the card's ``nvidia-smi`` name and
+power limit; the last line is ``{"ok": true, "device": {...}}``.  Exits
+nonzero without a result where CUDA is unavailable.
 """
 
 from __future__ import annotations
@@ -131,6 +152,14 @@ SU4_FLOPS_PER_SAMPLE_FIDELITY = 134
 # by tests/test_torch_su4_host.py.
 SU4_VJP_FLOPS_PER_SEGMENT = {2: 12264, 3: 12266, 4: 12274}
 SU4_VJP_FLOPS_PER_SAMPLE = 716
+# B8: B4's product (compose()) then B5's seed and sweep, per (sample,
+# segment) and per sample (held to the host build by the same test)
+SU4_B8_FLOPS_PER_SEGMENT = {P: SU4_FLOPS_PER_SEGMENT + f for P, f in
+                            SU4_VJP_FLOPS_PER_SEGMENT.items()}
+SU4_B8_FLOPS_PER_SAMPLE = SU4_FLOPS_PER_SAMPLE + SU4_VJP_FLOPS_PER_SAMPLE
+# B8 against B5 seeded by B4 on the same inputs: the same compose() and the
+# same sweep, so the same numbers but for the compiler's choices
+SU4_B8_B5_TOL = 1e-6
 # the JAX suite's tolerances for its Pallas SU(4) kernels (tests/test_su4_pallas.py:43,
 # :69, :121): products 2e-5, fidelities 1e-5 (2e-5 on drive2); at L = 100 widened to
 # twice the plain f32 version's own error against f64 where that is larger
@@ -157,6 +186,56 @@ JAX_SU4_TABLE = {
     "iswap": (0.9822724461555481, 0.9560391306877136, 0.9090651869773865),
     "sqrt_swap": (0.9938800930976868, 0.9852356910705566, 0.9655939936637878),
 }
+# The two-qubit GRAPE path: the JAX CLI on the CPU (`--gate cz --drive2`,
+# blocks, 10 blocks, 24 starts, lr 0.02, seeds 0 / 1 / 2) first has a start
+# at exact F > 0.999 after 39 / 45 / 44 steps of stage 0; the card run takes
+# GRAPE_STEPS per stage and must reach 0.99 there.
+GRAPE_STEPS = 50
+GRAPE_MIN_EXACT_F = 0.99
+# The per-gate polish path: the JAX CLI's 1500 polish steps (a step takes
+# ~4 ms here), its GRAPE candidates' 2000 steps per stage cut to 50 (a
+# GRAPE step takes ~170 ms, host-bound); the chosen table's mean E[F] over
+# the select σ may not fall more than POLISH_TOL below the model table's
+# (the best iterate is kept and the model table is a candidate).
+POLISH_STEPS = 1500
+POLISH_GRAPE_STEPS = 50
+POLISH_TOL = 2e-3
+# The JAX package's eval_pulse_tables on the CPU on the shipped
+# two_qubit_gates.npz bundle's five L = 40 tables (drive2, XLA path,
+# M = 20 000, ε_std 0.05, seed 7): gate → E[F] at σ_δ = 0, 0.1, 0.2, 0.3.
+JAX_BUNDLE_TABLE = {
+    "cz": (0.9960463643074036, 0.9800006747245789, 0.9030025005340576, 0.7689083814620972),
+    "zz(pi/4)": (0.9971822500228882, 0.9873948097229004, 0.93342125415802, 0.822611391544342),
+    "cnot": (0.9965227842330933, 0.9778727293014526, 0.9126752018928528, 0.7872372269630432),
+    "iswap": (0.9971479177474976, 0.9789591431617737, 0.9095389246940613, 0.7811154127120972),
+    "sqrt_swap": (0.996422171592712, 0.984074592590332, 0.9226723313331604, 0.7999072670936584),
+}
+# The JAX package's analysis/plots_su4.py::fidelity_by_std_su4 on the CPU for
+# the cz_robust (χ-only, P = 3) and cz_drive2 (drive2, P = 4) pulse tables,
+# σ_δ = 0.02, 0.04, …, 0.40 (the demo's grid), ε_std 0.05, M = 20 000
+# (PRNGKey(0)); the card's sweep, on its own draws at VARIANT_SWEEP_M, within
+# VARIANT_SWEEP_TOL (the JAX SE is at most 0.0017, the card's 0.0008).
+VARIANT_SWEEP_M = 100_000
+VARIANT_SWEEP_TOL = 0.01
+JAX_VARIANT_SWEEP = {
+    "cz_robust": (0.8572357296943665, 0.8219403028488159, 0.7582226991653442,
+                  0.6798102259635925, 0.626590371131897, 0.5784385800361633,
+                  0.5465652942657471, 0.522517740726471, 0.49951136112213135,
+                  0.4848792254924774, 0.46570539474487305, 0.4496079385280609,
+                  0.43709829449653625, 0.4275376498699188, 0.41556453704833984,
+                  0.4053516387939453, 0.39909911155700684, 0.39172035455703735,
+                  0.3859942853450775, 0.3798447549343109),
+    "cz_drive2": (0.9752307534217834, 0.9755719304084778, 0.9756261706352234,
+                  0.9762162566184998, 0.9760600328445435, 0.9743930697441101,
+                  0.9701351523399353, 0.962882399559021, 0.9520773887634277,
+                  0.9348106980323792, 0.9154505729675293, 0.8906792998313904,
+                  0.8622644543647766, 0.8403328657150269, 0.8099608421325684,
+                  0.7819472551345825, 0.7534663677215576, 0.721082329750061,
+                  0.695091724395752, 0.6728449463844299),
+}
+# cz_drive2's published E[F] at σ_δ = 0.1 / 0.2 / 0.3 (M = 4096, ε_std 0.05;
+# demo/weights/README.md), printed beside the card's
+CZ_DRIVE2_PUBLISHED = {0.1: 0.976, 0.2: 0.934, 0.3: 0.804}
 
 
 def quat_tol(L: int) -> float:
@@ -324,13 +403,17 @@ def su4_bound(B, L, P, M, fidelity, product=False):
     return roofline(B * M * per_sample, in_bytes + out_bytes)
 
 
-def su4_vjp_bound(B, L, P, M):
+def su4_vjp_bound(B, L, P, M, rebuild=False):
     """B5: reads pulses, the targets, ḡ, δ₁, δ₂, ε and B4's product once;
-    writes dpulses, dδ₁, dδ₂ and dε."""
-    in_bytes = 4 * (B * L * P + 32 * B + B + 3 * B * M + 32 * B * M)
+    writes dpulses, dδ₁, dδ₂ and dε.  B8 (``rebuild``): the same without
+    the product, and the product's flops besides."""
+    in_bytes = 4 * (B * L * P + 32 * B + B + 3 * B * M + (0 if rebuild else 32 * B * M))
     out_bytes = 4 * (B * L * P + 3 * B * M)
-    flops = B * M * (L * SU4_VJP_FLOPS_PER_SEGMENT[P] + SU4_VJP_FLOPS_PER_SAMPLE)
-    return roofline(flops, in_bytes + out_bytes)
+    if rebuild:
+        per_sample = L * SU4_B8_FLOPS_PER_SEGMENT[P] + SU4_B8_FLOPS_PER_SAMPLE
+    else:
+        per_sample = L * SU4_VJP_FLOPS_PER_SEGMENT[P] + SU4_VJP_FLOPS_PER_SAMPLE
+    return roofline(B * M * per_sample, in_bytes + out_bytes)
 
 
 def ptxas_table(built) -> dict:
@@ -364,17 +447,19 @@ def ptxas_of(table: dict, fragment: str) -> dict:
 
 
 def check_su4_train(gen, dev) -> str:
-    """B4 (mean and product) against its plain version and B5 against
-    autograd through the plain forward under a non-uniform per-target ḡ (the
-    CVaR path), P ∈ {2, 3, 4}, L ∈ {3, 7, 100}, M ∈ {1, 200, 1000}; every
-    P ≥ 3 case has Ω < 0 entries.  Tolerances: B4 as B6 and B7 in
-    check-su4; B5 the JAX suite's 1e-5 abs on gradients
-    (tests/test_su4_pallas_bwd.py) with grads_close's relative part, widened
-    to twice the plain f32 version's own error against f64 where larger."""
+    """B4 (mean and product) against its plain version, and B5 and B8
+    against autograd through the plain forward under a non-uniform
+    per-target ḡ (the CVaR path), P ∈ {2, 3, 4}, L ∈ {3, 7, 100},
+    M ∈ {1, 200, 1000}; every P ≥ 3 case has Ω < 0 entries.  Tolerances:
+    B4 as B6 and B7 in check-su4; B5 and B8 the JAX suite's 1e-5 abs on
+    gradients (tests/test_su4_pallas_bwd.py) with grads_close's relative
+    part, widened to twice the plain f32 version's own error against f64
+    where larger; B8 against B5 seeded by B4 within SU4_B8_B5_TOL."""
     from universal_quantum_optimal_control_tpu_torch.ops.propagate_su4 import (
         mean_fidelity_su4_with_product_cuda, mean_fidelity_su4_with_product_plain,
-        su4_objective_vjp_from_product_cuda, su4_objective_vjp_from_product_plain)
-    worst_f, worst_u, worst_g = 0.0, 0.0, [0.0] * 3
+        su4_objective_vjp_cuda, su4_objective_vjp_from_product_cuda,
+        su4_objective_vjp_from_product_plain)
+    worst_f, worst_u, worst_g, worst_8, worst_85 = 0.0, 0.0, [0.0] * 3, [0.0] * 3, 0.0
     n = 0
     for P in (2, 3, 4):
         for L in (3, 7, 100):
@@ -385,6 +470,7 @@ def check_su4_train(gen, dev) -> str:
                 F_k, prod_k = mean_fidelity_su4_with_product_cuda(pulses, tr, ti, d1, d2, ep, sys4)
                 got = su4_objective_vjp_from_product_cuda(pulses, tr, ti, d1, d2, ep, gbar, prod_k,
                                                           sys4)
+                got8 = su4_objective_vjp_cuda(pulses, tr, ti, d1, d2, ep, gbar, sys4)
                 torch.cuda.synchronize()
                 F_p, prod_p = mean_fidelity_su4_with_product_plain(pulses, tr, ti, d1, d2, ep, sys4)
                 err_f, err_u = max_err(F_k, F_p), max_err(prod_k, prod_p)
@@ -402,17 +488,74 @@ def check_su4_train(gen, dev) -> str:
                 want = su4_objective_vjp_from_product_plain(pulses, tr, ti, d1, d2, ep, gbar,
                                                             prod_p, sys4)
                 exact = su4_objective_vjp_from_product_plain(*args64, gbar.double(), None, sys4)
-                e5 = grads_close(f"B5 {case}", ("pulses", "delta1", "delta2", "eps"),
-                                 (1e-5,) * 4, got, want, exact)
+                names = ("pulses", "delta1", "delta2", "eps")
+                e5 = grads_close(f"B5 {case}", names, (1e-5,) * 4, got, want, exact)
+                e8 = grads_close(f"B8 {case}", names, (1e-5,) * 4, got8, want, exact)
+                e85 = max_err(got8, got)
+                if not e85 <= SU4_B8_B5_TOL:
+                    raise AssertionError(f"B8 {case}: |B8 - B5 seeded by B4| {e85:.3e} > "
+                                         f"{SU4_B8_B5_TOL:.0e}")
                 worst_f, worst_u = max(worst_f, err_f), max(worst_u, err_u)
                 worst_g = [max(w, e) for w, e in zip(worst_g, e5)]
+                worst_8 = [max(w, e) for w, e in zip(worst_8, e8)]
+                worst_85 = max(worst_85, e85)
                 n += 1
                 print(f"  {case}: B4 F err {err_f:.2e} (tol {tol_f:.1e}), product err "
                       f"{err_u:.2e} (tol {tol_u:.1e}); B5 err {e5[0]:.2e} (vs f64: kernel "
-                      f"{e5[1]:.2e}, plain {e5[2]:.2e})")
-    return (f"{n} cases; worst B4 F {worst_f:.3e}, product {worst_u:.3e}; worst B5 {worst_g[0]:.3e} "
-            f"against plain (atol max(1e-5, 2× the plain f32 error), rtol {GRAD_RTOL:.0e}); "
-            f"against f64: B5 kernel {worst_g[1]:.3e} / plain {worst_g[2]:.3e}")
+                      f"{e5[1]:.2e}, plain {e5[2]:.2e}); B8 err {e8[0]:.2e} (vs f64 "
+                      f"{e8[1]:.2e}), B8 - B5 {e85:.2e}")
+    return (f"{n} cases; worst B4 F {worst_f:.3e}, product {worst_u:.3e}; worst B5 {worst_g[0]:.3e}, "
+            f"B8 {worst_8[0]:.3e} against plain (atol max(1e-5, 2× the plain f32 error), rtol "
+            f"{GRAD_RTOL:.0e}); against f64: B5 kernel {worst_g[1]:.3e}, B8 kernel "
+            f"{worst_8[1]:.3e}, plain {worst_g[2]:.3e}; worst |B8 - B5 seeded by B4| "
+            f"{worst_85:.3e} (tol {SU4_B8_B5_TOL:.0e})")
+
+
+def step_profile(step, n: int, keys=(), per_call: int = 1) -> dict:
+    """ms per step on the host clock around ``n`` synchronized calls of
+    ``step()`` (after one warm-up), each ``per_call`` steps, then a profile
+    of 3 calls: the device's kernel time per step and that of the kernels
+    whose names contain one of ``keys``."""
+    step()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t1) / (n * per_call)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and "#" not in e.key]
+    dev_ms = sum(e.self_device_time_total for e in events) / (3e3 * per_call)
+    ours_ms = sum(e.self_device_time_total for e in events
+                  if any(k in e.key for k in keys)) / (3e3 * per_call)
+    return {"ms": ms, "device_ms": dev_ms, "kernel_ms": ours_ms}
+
+
+def su4_counters() -> dict:
+    from universal_quantum_optimal_control_tpu_torch.ops import propagate_su4 as t4
+    return {"B4": t4.mean_fidelity_su4_with_product_cuda,
+            "B5": t4.su4_objective_vjp_from_product_cuda,
+            "B6": t4.mean_fidelity_su4_cuda, "B7": t4.propagate_su4_mc_cuda,
+            "B8": t4.su4_objective_vjp_cuda}
+
+
+def run_path(fn, need):
+    """Counters to 0, ``fn()``, counters read: fails unless every kernel in
+    ``need`` was launched.  Returns ``(fn's result, launches)``."""
+    counters = su4_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    if min(launches[k] for k in need) < 1:
+        raise AssertionError(f"a kernel of {need} was not launched on the path: {launches}")
+    return out, launches
 
 
 def train_su4(ckpt, kw4, dev) -> dict:
@@ -430,9 +573,6 @@ def train_su4(ckpt, kw4, dev) -> dict:
     from universal_quantum_optimal_control_tpu_torch.workloads import two_qubit, two_qubit_eval
 
     B, M = TRAIN4_BATCH, TRAIN4_MC
-    counters = {"B4": t4.mean_fidelity_su4_with_product_cuda,
-                "B5": t4.su4_objective_vjp_from_product_cuda,
-                "B6": t4.mean_fidelity_su4_cuda, "B7": t4.propagate_su4_mc_cuda}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         save = Path(tmp) / "run"
@@ -444,15 +584,8 @@ def train_su4(ckpt, kw4, dev) -> dict:
                 "--reset_opt_per_band", "--shuffle", "--recover_collapse", "0.05",
                 "--restore", ckpt, "--train_size", "64", "--eval_size", "32",
                 "--num_epoch", "2", "--save_path", str(save)]
-        for c in counters.values():
-            c.launches = 0
-        history = two_qubit.main(argv)
-        torch.cuda.synchronize()
-        launches = {k: c.launches for k, c in counters.items()}
+        history, launches = run_path(lambda: two_qubit.main(argv), ["B4", "B5", "B6"])
         t_cli = time.perf_counter() - t0
-        if min(launches[k] for k in ("B4", "B5", "B6")) < 1:
-            raise AssertionError(f"a kernel was not launched on the two-qubit training path: "
-                                 f"{launches}")
         band = history["bands"][0]
         losses, fids = band["train_loss"], band["eval_fid"]
         if len(history["bands"]) != 1 or len(losses) != 2 or len(fids) != 2:
@@ -563,6 +696,182 @@ def train_su4(ckpt, kw4, dev) -> dict:
             "pulses": pulses, "targets": targets, "errors": errors}
 
 
+def grape_su4(dev) -> dict:
+    """The two-qubit GRAPE path: the CLI on CZ (drive2, blocks, 10 blocks,
+    24 starts, σ 0.1, 0.2 at M = 128, GRAPE_STEPS per stage) into a
+    tempdir, its curve through B7; then ms per exact and MC step with a
+    profile.  Returns what the time phase needs."""
+    from universal_quantum_optimal_control_tpu_torch.optimizers import two_qubit_grape as tg
+    from universal_quantum_optimal_control_tpu_torch.workloads import two_qubit_grape
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--device", "cuda", "--gate", "cz", "--drive2", "--mode", "blocks",
+                "--n_blocks", "10", "--n_starts", "24", "--sigmas", "0.1,0.2",
+                "--monte_carlo", "128", "--steps", str(GRAPE_STEPS), "--out", tmp]
+        res, launches = run_path(lambda: two_qubit_grape.main(argv), ["B7"])
+        t_cli = time.perf_counter() - t0
+        files = sorted(p.name for p in Path(tmp).iterdir())
+        if files != ["pulses.npz", "result.json", "robustness.csv"]:
+            raise AssertionError(f"GRAPE CLI wrote {files}")
+        with np.load(Path(tmp) / "pulses.npz") as z:
+            if z["pulses"].shape != (20, 4) or not np.isfinite(z["pulses"]).all():
+                raise AssertionError(f"GRAPE pulses {z['pulses'].shape}")
+    stages = res["info"]["stages"]
+    best0 = stages[0]["best_fid"]
+    if not GRAPE_MIN_EXACT_F <= best0 <= 1.0 + 1e-5:
+        raise AssertionError(f"GRAPE stage 0 best exact F {best0:.5f} after {GRAPE_STEPS} steps "
+                             f"< {GRAPE_MIN_EXACT_F}")
+    curve = res["curve"]
+    if len(curve) != 6 or not all(0.0 < m <= 1.0 and se >= 0.0 for _, m, se in curve):
+        raise AssertionError(f"GRAPE robustness curve {curve}")
+    print(f"  CLI: {len(stages)} stages × {GRAPE_STEPS} steps in {t_cli:.2f} s; best F per stage "
+          + " / ".join(f"{st['best_fid']:.5f}" for st in stages) + "; exact F of the pulse "
+          f"{res['info']['exact_fid_of_best']:.5f}; curve E[F] " + " ".join(
+              f"{s:g}:{m:.4f}" for s, m, _ in curve) + f"; launches {launches}")
+
+    # ms per GRAPE step at the CLI's shape (autograd through the plain path)
+    cfg = tg.TwoQubitGrapeConfig(drive2=True, n_blocks=10, n_starts=24, monte_carlo=128)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    raw = tg._init_raw(cfg, gen).requires_grad_(True)
+    opt = tg._adam(raw, cfg)
+    U = tg.named_two_qubit_targets()["cz"]
+    target = (torch.as_tensor(U.real, device=dev), torch.as_tensor(U.imag, device=dev))
+    exact = step_profile(lambda: tg.step_exact(raw, opt, cfg, target), 10)
+    mc = step_profile(lambda: tg.step_mc(raw, opt, cfg, target, tg._draws(gen, 24, 128), 0.1),
+                      10)
+    print(f"  GRAPE step (24 starts, L = 20): exact {exact['ms']:.2f} ms (kernels "
+          f"{exact['device_ms']:.3f} ms, {100 * exact['device_ms'] / exact['ms']:.1f} %), "
+          f"MC at M = 128 {mc['ms']:.2f} ms (kernels {mc['device_ms']:.3f} ms, "
+          f"{100 * mc['device_ms'] / mc['ms']:.1f} %)")
+    return {"launches": launches, "best0": best0, "pulses": res["pulses"], "t_cli": t_cli,
+            "exact_step": exact, "mc_step": mc}
+
+
+def polish_su4(dev) -> dict:
+    """The per-gate polish path: the finetune CLI at full width (the
+    flagship's best-of-ℤ₄ tables of the 5 named gates, σ mix 0, 0.1, 0.2 at
+    M = 4096, lr 3e-3, POLISH_STEPS; GRAPE candidates at
+    POLISH_GRAPE_STEPS; eval M = 20 000, σ 0, 0.1, 0.2, 0.3) into a
+    tempdir; each gate's chosen table no worse than the model's; the bundle
+    read back; then ms per polish step with a profile."""
+    from universal_quantum_optimal_control_tpu_torch.optimizers import named_two_qubit_targets
+    from universal_quantum_optimal_control_tpu_torch.training import SU4System
+    from universal_quantum_optimal_control_tpu_torch.workloads import \
+        finetune_two_qubit_gates as ft
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "two_qubit_gates.npz"
+        argv = ["--device", "cuda", "--steps", str(POLISH_STEPS), "--monte_carlo", "4096",
+                "--learning_rate", "3e-3", "--sigma_mix", "0,0.1,0.2", "--eval_mc", "20000",
+                "--eval_sigmas", "0,0.1,0.2,0.3", "--grape", "--grape_steps",
+                str(POLISH_GRAPE_STEPS), "--out", str(out)]
+        res, launches = run_path(lambda: ft.main(argv), ["B4", "B5", "B6"])
+        t_cli = time.perf_counter() - t0
+        tables, meta = ft.load_two_qubit_gate_bundle(out)
+    names, sigmas, select = res["names"], res["sigmas"], res["select"]
+    if meta["gates"] != names or len(names) != 5 or meta["sources"] != res["sources"]:
+        raise AssertionError(f"bundle meta {meta['gates']} {meta['sources']}")
+    worst = np.inf
+    for i, g in enumerate(names):
+        chosen = ft._score(meta["fidelity"][i], sigmas, select)
+        model = ft._score(res["f_model"][i], sigmas, select)
+        worst = min(worst, chosen - model)
+        if not chosen >= model - POLISH_TOL:
+            raise AssertionError(f"polish {g}: chosen {chosen:.5f} below the model's {model:.5f}")
+        src = dict(zip(names, res["sources"]))[g]
+        want = dict((c[0], c[1]) for c in res["candidates"][g])[src]
+        if not np.array_equal(tables[g], np.asarray(want, np.float32)):
+            raise AssertionError(f"bundle table of {g} is not its chosen candidate")
+        print(f"  {g}: {src}, E[F] " + " ".join(f"{v:.4f}" for v in meta["fidelity"][i])
+              + "; model " + " ".join(f"{v:.4f}" for v in res["f_model"][i])
+              + "; candidates " + ", ".join(f"{c[0]} {ft._score(c[2], sigmas, select):.4f}"
+                                            for c in res["candidates"][g]))
+    print(f"  CLI: polish {POLISH_STEPS} steps, GRAPE {POLISH_GRAPE_STEPS} steps × 3 stages × "
+          f"5 gates, evals at M = 20 000 in {t_cli:.2f} s; chosen minus model (mean over "
+          f"select σ) ≥ {worst:.5f}; launches {launches}")
+
+    # ms per polish step at the CLI's shape: 5 gates, L = 100, M = 4096
+    pulses0 = torch.as_tensor(np.stack([res["candidates"][g][0][1] for g in names]),
+                              device=dev).contiguous()
+    gates = named_two_qubit_targets()
+    packed = SU4System.pack_target(np.stack([gates[g] for g in names])).to(dev)
+    system = SU4System(drive2=True, backend="pallas")
+    prof = step_profile(lambda: ft.finetune_su4_tables(
+        pulses0, packed, ft.DRIVE2_SPACE, steps=5, monte_carlo=4096, system=system,
+        log_every=10**9), 2, ("mean_fid_su4_kernel", "su4_vjp_kernel",
+                               "reduce_partials_kernel", "reduce_columns_kernel"), per_call=5)
+    print(f"  polish step (5 gates, L = 100, M = 4096, 3 σ terms): {prof['ms']:.2f} ms, kernels "
+          f"{prof['device_ms']:.3f} ms ({100 * prof['device_ms'] / prof['ms']:.1f} %), of which "
+          f"B4/B5 and their reductions {prof['kernel_ms']:.3f} ms "
+          f"({100 * prof['kernel_ms'] / prof['ms']:.1f} %)")
+    return {"launches": launches, "pulses0": pulses0, "packed": packed, "t_cli": t_cli,
+            "step": prof, "worst": worst}
+
+
+def serve_su4_variants(dev) -> dict:
+    """The two-qubit demo variants: the shipped bundle's tables scored
+    through B6 against the JAX package's CPU table, and the cz_robust and
+    cz_drive2 sweeps through B7 against the JAX package's CPU sweep."""
+    from universal_quantum_optimal_control_tpu_torch.demo import app
+    from universal_quantum_optimal_control_tpu_torch.optimizers import named_two_qubit_targets
+    from universal_quantum_optimal_control_tpu_torch.training import SU4System
+    from universal_quantum_optimal_control_tpu_torch.workloads import \
+        finetune_two_qubit_gates as ft
+    from universal_quantum_optimal_control_tpu_torch.workloads import two_qubit_eval
+
+    def run():
+        tables, meta = ft.load_two_qubit_gate_bundle(
+            app.TWO_QUBIT_VARIANTS["two_qubit_gates"]["gate_bundle"])
+        names = meta["gates"]
+        for g in names:
+            served, _, _, _ = app.two_qubit_pulse_table("two_qubit_gates", g, device=dev)
+            if not np.array_equal(served, tables[g]):
+                raise AssertionError(f"two_qubit_gates serves another table for {g}")
+        gates = named_two_qubit_targets()
+        pulses = torch.as_tensor(np.stack([tables[g] for g in names]), device=dev)
+        packed = SU4System.pack_target(np.stack([gates[g] for g in names])).to(dev)
+        sigmas = [0.0, 0.1, 0.2, 0.3]
+        table = two_qubit_eval.eval_pulse_tables(
+            pulses.contiguous(), packed, sigmas, monte_carlo=20_000, epsilon_std=0.05,
+            system=SU4System(drive2=True, backend="pallas"))
+        sweeps = {v: app.two_qubit_robustness(v, monte_carlo=VARIANT_SWEEP_M, device=dev)
+                  for v in ("cz_robust", "cz_drive2")}
+        return names, meta, pulses, packed, table, sweeps
+
+    t0 = time.perf_counter()
+    (names, meta, pulses, packed, table, sweeps), launches = run_path(run, ["B6", "B7"])
+    err0, errmc = 0.0, 0.0
+    for i, g in enumerate(names):
+        ref = JAX_BUNDLE_TABLE[g]
+        e0, emc = abs(table[i, 0] - ref[0]), float(np.abs(table[i, 1:] - ref[1:]).max())
+        if not (e0 <= SU4_EXACT_TOL and emc <= SU4_MC_TOL):
+            raise AssertionError(f"bundle {g}: E[F] {table[i]} vs JAX CPU {ref} (tol "
+                                 f"{SU4_EXACT_TOL} / {SU4_MC_TOL})")
+        err0, errmc = max(err0, e0), max(errmc, emc)
+        print(f"  bundle {g}: E[F] " + " ".join(f"{v:.5f}" for v in table[i]) + "; JAX CPU "
+              + " ".join(f"{v:.5f}" for v in ref) + "; minus the bundle's meta fidelity "
+              + " ".join(f"{a - b:+.5f}" for a, b in zip(table[i], meta["fidelity"][i])))
+    worst_sweep = 0.0
+    for v, out in sweeps.items():
+        ref = np.asarray(JAX_VARIANT_SWEEP[v])
+        err = float(np.abs(out["mean"] - ref).max())
+        worst_sweep = max(worst_sweep, err)
+        if not (err <= VARIANT_SWEEP_TOL and out["mean"].max() <= 1.0):
+            raise AssertionError(f"{v} E[F](sigma) vs JAX CPU: {err:.3e} > {VARIANT_SWEEP_TOL}")
+        print(f"  {v} ({out['pulses'].shape}): E[F](sigma) within {err:.2e} of JAX CPU; at "
+              f"0.1 / 0.2 / 0.3: " + " / ".join(f"{out['mean'][k]:.4f} ± {out['se'][k]:.4f}"
+                                                for k in (4, 9, 14)))
+    d2 = sweeps["cz_drive2"]
+    print("  cz_drive2 against its published E[F] (M = 4096): " + ", ".join(
+        f"sigma {s}: {d2['mean'][k]:.4f} vs {CZ_DRIVE2_PUBLISHED[s]}"
+        for s, k in ((0.1, 4), (0.2, 9), (0.3, 14))))
+    return {"launches": launches, "pulses": pulses, "packed": packed, "err0": err0,
+            "errmc": errmc, "sweep_err": worst_sweep, "d2_pulses": d2["pulses"],
+            "t": time.perf_counter() - t0}
+
+
 def main() -> int:
     t_total = time.perf_counter()
     if not torch.cuda.is_available():
@@ -593,7 +902,8 @@ def main() -> int:
     from universal_quantum_optimal_control_tpu_torch.ops.propagate_su4 import (
         mean_fidelity_su4_cuda, mean_fidelity_su4_plain, mean_fidelity_su4_with_product_cuda,
         mean_fidelity_su4_with_product_plain, propagate_su4_mc_cuda, propagate_su4_mc_plain,
-        su4_objective_vjp_from_product_cuda, su4_objective_vjp_from_product_plain)
+        su4_objective_vjp_cuda, su4_objective_vjp_from_product_cuda,
+        su4_objective_vjp_from_product_plain, su4_objective_vjp_plain)
     from universal_quantum_optimal_control_tpu_torch.optimizers import named_two_qubit_targets
     from universal_quantum_optimal_control_tpu_torch.training import SU4System
     from universal_quantum_optimal_control_tpu_torch.workloads import two_qubit_eval
@@ -708,9 +1018,13 @@ def main() -> int:
           f"{SU4_FID_TOL[4]:.0e} drive2; at L = 100 max of those and 2× the plain f32 "
           f"error against f64)")
 
-    # 5. check-su4-train: B4 and B5 against their plain versions
+    # 5. check-su4-train: B4, B5 and B8 against their plain versions; no path
+    # runs B8, so its row reports this phase's launches
     t0 = time.perf_counter()
-    phase("check-su4-train", t0, check_su4_train(gen, dev))
+    su4_objective_vjp_cuda.launches = 0
+    msg = check_su4_train(gen, dev)
+    check_launches = {"B8": su4_objective_vjp_cuda.launches}
+    phase("check-su4-train", t0, f"{msg}; launches {check_launches}")
 
     # 6. serve — the main path starts here: counters to 0
     mean_fidelity_cuda.launches = 0
@@ -1021,7 +1335,32 @@ def main() -> int:
           f"(against f64: pallas {tq['e32']['pallas']:.3e}, xla {tq['e32']['xla']:.3e}); "
           f"eval E[F] {tq['fids'][-1]:.5f}; launches {tq['launches']}")
 
-    # 12. time each kernel at each path's shape: one row per (kernel, path),
+    # 12. grape-su4 — the two-qubit GRAPE path: counters to 0 inside
+    t0 = time.perf_counter()
+    gq = grape_su4(dev)
+    phase("grape-su4", t0, f"CZ drive2, 24 starts, {GRAPE_STEPS} steps per stage: stage-0 best "
+          f"exact F {gq['best0']:.5f} (gate {GRAPE_MIN_EXACT_F}); CLI {gq['t_cli']:.2f} s; ms "
+          f"per step: exact {gq['exact_step']['ms']:.2f}, MC {gq['mc_step']['ms']:.2f}; "
+          f"launches {gq['launches']}")
+
+    # 13. polish-su4 — the per-gate polish path: counters to 0 inside
+    t0 = time.perf_counter()
+    pq = polish_su4(dev)
+    phase("polish-su4", t0, f"5 gates, {POLISH_STEPS} polish steps at M = 4096: chosen minus "
+          f"model ≥ {pq['worst']:.5f} (gate -{POLISH_TOL}); CLI {pq['t_cli']:.2f} s; ms per "
+          f"polish step {pq['step']['ms']:.2f} (B4/B5 {pq['step']['kernel_ms']:.3f}); "
+          f"launches {pq['launches']}")
+
+    # 14. serve-su4-variants — the demo's two-qubit variants: counters to 0
+    # inside
+    t0 = time.perf_counter()
+    vq = serve_su4_variants(dev)
+    phase("serve-su4-variants", t0, f"bundle sigma=0 within {vq['err0']:.2e} of the JAX CPU "
+          f"table (tol {SU4_EXACT_TOL:.0e}), sigma > 0 within {vq['errmc']:.2e} (tol "
+          f"{SU4_MC_TOL}); sweeps within {vq['sweep_err']:.2e} (tol {VARIANT_SWEEP_TOL}); "
+          f"launches {vq['launches']}")
+
+    # 15. time each kernel at each path's shape: one row per (kernel, path),
     # its launches those of that path's run
     t0 = time.perf_counter()
     csrc = "universal_quantum_optimal_control_tpu_torch/ops/csrc/"
@@ -1036,14 +1375,18 @@ def main() -> int:
              "B4": ("mean_fidelity_su4_with_product_cuda (B4)",
                     "ops/propagate_su4_pallas.py:256", "propagate_su4.cu"),
              "B5": ("su4_objective_vjp_from_product_cuda (B5)",
-                    "ops/propagate_su4_pallas_bwd.py:364", "propagate_su4_bwd.cu")}
+                    "ops/propagate_su4_pallas_bwd.py:364", "propagate_su4_bwd.cu"),
+             "B8": ("su4_objective_vjp_cuda (B8)", "ops/propagate_su4_pallas_bwd.py:271",
+                    "propagate_su4_bwd.cu")}
     # each kernel's entry function at pulse width P, as ptxas names it
     entry = {"B1": "mean_fid_kernelILi{}E", "B2": "propagate_mc_vjp_kernelILi{}E",
              "B3": "propagate_mc_kernelILi{}E", "B4": "mean_fid_su4_kernelILi{}ELb1E",
-             "B5": "su4_vjp_kernelILi{}E", "B6": "mean_fid_su4_kernelILi{}ELb0E",
-             "B7": "propagate_su4_kernelILi{}E"}
+             "B5": "su4_vjp_kernelILi{}ELb0E", "B6": "mean_fid_su4_kernelILi{}ELb0E",
+             "B7": "propagate_su4_kernelILi{}E", "B8": "su4_vjp_kernelILi{}ELb1E"}
     launches = {"serve": serve_launches, "train": train_launches, "serve-su4": su4_launches,
-                "train-su4": tq["launches"]}
+                "train-su4": tq["launches"], "check-su4-train": check_launches,
+                "grape-su4": gq["launches"], "polish-su4": pq["launches"],
+                "serve-su4-variants": vq["launches"]}
 
     def row(kid, path, shape, err, ms, plain_ms, bound_):
         name, where, src = names[kid]
@@ -1102,72 +1445,85 @@ def main() -> int:
                    vjp_bound(Bt, Lt, Pt, Mt))
     p1 = pulses[:1].contiguous()
     d1, e1 = delta[:1, :1 << 18].contiguous(), eps[:1, :1 << 18].contiguous()
-    # B6 at the named-gate table's shape (5 gates, σ_δ = 0.2 draws) and B7 at
-    # the sweep's, each against its plain version (L = 100 tolerance rule)
-    n4 = sys4.sample_errors(torch.Generator(device=dev).manual_seed(7), (5, 20_000), 1.0, 1.0)
-    b6_in = (best4, gates_packed[:, 0].contiguous(), gates_packed[:, 1].contiguous(),
-             n4[0] * 0.2, n4[1] * 0.2, n4[2] * 0.05)
-    b7_in = (cz_pulses, sweep_d1, sweep_d2, sweep_e)
-    b6_k, b6_p = mean_fidelity_su4_cuda(*b6_in, sys4.system), mean_fidelity_su4_plain(*b6_in, sys4.system)
-    b7_k, b7_p = propagate_su4_mc_cuda(*b7_in, sys4.system), propagate_su4_mc_plain(*b7_in, sys4.system)
-    b6_err, b7_err = max_err(b6_k, b6_p), max_err(b7_k, b7_p)
-    b6_tol = max(SU4_FID_TOL[4], 2 * max_err(b6_p, mean_fidelity_su4_plain(
-        *(t.double() for t in b6_in), sys4.system)))
-    b7_tol = max(SU4_PROD_TOL, 2 * max_err(b7_p, propagate_su4_mc_plain(
-        *(t.double() for t in b7_in), sys4.system)))
-    if not (b6_err <= b6_tol and b7_err <= b7_tol):
-        raise AssertionError(f"at the two-qubit serving shapes: B6 {b6_err:.3e} (tol "
-                             f"{b6_tol:.2e}), B7 {b7_err:.3e} (tol {b7_tol:.2e})")
-    b6_row = row("B6", "serve-su4", (5, 100, 4, 20_000), b6_err,
-                 time_ms(lambda: mean_fidelity_su4_cuda(*b6_in, sys4.system), 20),
-                 time_ms(lambda: mean_fidelity_su4_plain(*b6_in, sys4.system), 3),
-                 su4_bound(5, 100, 4, 20_000, fidelity=True))
-    b7_row = row("B7", "serve-su4", (1, 100, 4, sweep_d1.shape[1]), b7_err,
-                 time_ms(lambda: propagate_su4_mc_cuda(*b7_in, sys4.system), 20),
-                 time_ms(lambda: propagate_su4_mc_plain(*b7_in, sys4.system), 3),
-                 su4_bound(1, 100, 4, sweep_d1.shape[1], fidelity=False))
-    # B4, B5 and B6 at the two-qubit training shape (the restored model's
-    # pulses on the step's targets and σ_δ = 0.2 draws), each against its
-    # plain version (L = 100 tolerance rule)
+    # the SU(4) kernels, each against its plain version at the path's shape,
+    # with the L = 100 rule: the JAX suite's tolerance or twice the plain
+    # f32 version's own error against f64, whichever is larger
+    def su4_shape(in_):
+        return (*in_[0].shape, in_[-1].shape[1])
+
+    def su4_fid_row(path, in_, sys_):
+        """B6 on in_ = (pulses, target re, im, δ₁, δ₂, ε)."""
+        k, p_ = mean_fidelity_su4_cuda(*in_, sys_), mean_fidelity_su4_plain(*in_, sys_)
+        tol = max(SU4_FID_TOL[in_[0].shape[2]], 2 * max_err(p_, mean_fidelity_su4_plain(
+            *(t.double() for t in in_), sys_)))
+        err = max_err(k, p_)
+        if not err <= tol:
+            raise AssertionError(f"B6 at the {path} shape: {err:.3e} > {tol:.2e}")
+        return row("B6", path, su4_shape(in_), err,
+                   time_ms(lambda: mean_fidelity_su4_cuda(*in_, sys_), 20),
+                   time_ms(lambda: mean_fidelity_su4_plain(*in_, sys_), 2),
+                   su4_bound(*su4_shape(in_), fidelity=True))
+
+    def su4_prop_row(path, in_, sys_):
+        """B7 on in_ = (pulses, δ₁, δ₂, ε)."""
+        k, p_ = propagate_su4_mc_cuda(*in_, sys_), propagate_su4_mc_plain(*in_, sys_)
+        tol = max(SU4_PROD_TOL, 2 * max_err(p_, propagate_su4_mc_plain(
+            *(t.double() for t in in_), sys_)))
+        err = max_err(k, p_)
+        if not err <= tol:
+            raise AssertionError(f"B7 at the {path} shape: {err:.3e} > {tol:.2e}")
+        return row("B7", path, su4_shape(in_), err,
+                   time_ms(lambda: propagate_su4_mc_cuda(*in_, sys_), 20),
+                   time_ms(lambda: propagate_su4_mc_plain(*in_, sys_), 2),
+                   su4_bound(*su4_shape(in_), fidelity=False))
+
+    def su4_train_rows(path, in_, gbar, sys_):
+        """B4 and B5 on in_ under the per-target cotangent gbar; returns the
+        two rows and the gradients (kernel, plain, f64) for B8's row."""
+        in64 = tuple(t.double() for t in in_)
+        F_k, prod_k = mean_fidelity_su4_with_product_cuda(*in_, sys_)
+        F_p, prod_p = mean_fidelity_su4_with_product_plain(*in_, sys_)
+        F64, prod64 = mean_fidelity_su4_with_product_plain(*in64, sys_)
+        errs = (max_err(F_k, F_p), max_err(prod_k, prod_p))
+        tols = (max(SU4_FID_TOL[4], 2 * max_err(F_p, F64)),
+                max(SU4_PROD_TOL, 2 * max_err(prod_p, prod64)))
+        if not all(e <= t for e, t in zip(errs, tols)):
+            raise AssertionError(f"B4 at the {path} shape: F, product errors {errs} beyond {tols}")
+        g_k = su4_objective_vjp_from_product_cuda(*in_, gbar, prod_k, sys_)
+        g_p = su4_objective_vjp_from_product_plain(*in_, gbar, prod_p, sys_)
+        g64 = su4_objective_vjp_from_product_plain(*in64, gbar.double(), None, sys_)
+        e5 = grads_close(f"B5 at the {path} shape", ("pulses", "delta1", "delta2", "eps"),
+                         (1e-5,) * 4, g_k, g_p, g64)
+        shape = su4_shape(in_)
+        b4 = row("B4", path, shape, max(errs),
+                 time_ms(lambda: mean_fidelity_su4_with_product_cuda(*in_, sys_), 20),
+                 time_ms(lambda: mean_fidelity_su4_with_product_plain(*in_, sys_), 2),
+                 su4_bound(*shape, fidelity=True, product=True))
+        b5 = row("B5", path, shape, e5[0],
+                 time_ms(lambda: su4_objective_vjp_from_product_cuda(*in_, gbar, prod_k, sys_),
+                         20),
+                 time_ms(lambda: su4_objective_vjp_from_product_plain(*in_, gbar, prod_p, sys_),
+                         2),
+                 su4_vjp_bound(*shape))
+        b5["vs_f64"] = {"kernel": e5[1], "plain": e5[2]}
+        return b4, b5, (g_k, g_p, g64)
+
+    # two-qubit serving: B6 at the named-gate table's shape (5 gates, σ_δ =
+    # 0.2 draws), B7 at the sweep's
     sysd = sys4.system
+    n4 = sys4.sample_errors(torch.Generator(device=dev).manual_seed(7), (5, 20_000), 1.0, 1.0)
+    serve_draws = (n4[0] * 0.2, n4[1] * 0.2, n4[2] * 0.05)
+    b6_row = su4_fid_row("serve-su4", (best4, gates_packed[:, 0].contiguous(),
+                                       gates_packed[:, 1].contiguous(), *serve_draws), sysd)
+    b7_row = su4_prop_row("serve-su4", (cz_pulses, sweep_d1, sweep_d2, sweep_e), sysd)
+    # two-qubit training: B4, B5 and B6 on the restored model's pulses, the
+    # step's targets and σ_δ = 0.2 draws; B8 beside B4 + B5 there
     tr4, ti4 = tq["targets"][:, 0].contiguous(), tq["targets"][:, 1].contiguous()
     in4 = (tq["pulses"], tr4, ti4, *tq["errors"])
-    in64 = tuple(t.double() for t in in4)
-    B4_, L4, P4 = tq["pulses"].shape
-    M4 = tq["errors"][0].shape[1]
-    shape4 = (B4_, L4, P4, M4)
-    gbar4 = torch.full((B4_,), 1.0 / B4_, device=dev)
-    F_k, prod_k = mean_fidelity_su4_with_product_cuda(*in4, sysd)
-    F_p, prod_p = mean_fidelity_su4_with_product_plain(*in4, sysd)
-    F64, prod64 = mean_fidelity_su4_with_product_plain(*in64, sysd)
-    b4_errs = (max_err(F_k, F_p), max_err(prod_k, prod_p))
-    b4_tols = (max(SU4_FID_TOL[4], 2 * max_err(F_p, F64)),
-               max(SU4_PROD_TOL, 2 * max_err(prod_p, prod64)))
-    if not all(e <= t for e, t in zip(b4_errs, b4_tols)):
-        raise AssertionError(f"B4 at the two-qubit training shape: F, product errors {b4_errs} "
-                             f"beyond {b4_tols}")
-    g_k = su4_objective_vjp_from_product_cuda(*in4, gbar4, prod_k, sysd)
-    g_p = su4_objective_vjp_from_product_plain(*in4, gbar4, prod_p, sysd)
-    g64 = su4_objective_vjp_from_product_plain(*in64, gbar4.double(), None, sysd)
-    e5 = grads_close("B5 at the two-qubit training shape", ("pulses", "delta1", "delta2", "eps"),
-                     (1e-5,) * 4, g_k, g_p, g64)
-    b6_train_err = max_err(mean_fidelity_su4_cuda(*in4, sysd), F_p)
-    if not b6_train_err <= b4_tols[0]:
-        raise AssertionError(f"B6 at the two-qubit training shape: {b6_train_err:.3e} > "
-                             f"{b4_tols[0]:.2e}")
-    b4_row = row("B4", "train-su4", shape4, max(b4_errs),
-                 time_ms(lambda: mean_fidelity_su4_with_product_cuda(*in4, sysd), 20),
-                 time_ms(lambda: mean_fidelity_su4_with_product_plain(*in4, sysd), 2),
-                 su4_bound(*shape4, fidelity=True, product=True))
-    b5_row = row("B5", "train-su4", shape4, e5[0],
-                 time_ms(lambda: su4_objective_vjp_from_product_cuda(*in4, gbar4, prod_k, sysd), 20),
-                 time_ms(lambda: su4_objective_vjp_from_product_plain(*in4, gbar4, prod_p, sysd),
-                         2),
-                 su4_vjp_bound(*shape4))
-    b6_train = row("B6", "train-su4", shape4, b6_train_err,
-                   time_ms(lambda: mean_fidelity_su4_cuda(*in4, sysd), 20),
-                   time_ms(lambda: mean_fidelity_su4_plain(*in4, sysd), 2),
-                   su4_bound(*shape4, fidelity=True))
+    shape4 = su4_shape(in4)
+    gbar4 = torch.full((shape4[0],), 1.0 / shape4[0], device=dev)
+    b4_row, b5_row, (g_k, g_p, g64) = su4_train_rows("train-su4", in4, gbar4, sysd)
+    b6_train = su4_fid_row("train-su4", in4, sysd)
     leaf4 = tq["pulses"].clone().requires_grad_(True)
 
     def fwd_bwd4(fn):
@@ -1175,9 +1531,49 @@ def main() -> int:
 
     b4_row["fwd_bwd_ms"] = time_ms(fwd_bwd4(mean_fidelity_su4_cuda), 20)
     b4_row["fwd_bwd_plain_ms"] = time_ms(fwd_bwd4(mean_fidelity_su4_plain), 2)
+    g8 = su4_objective_vjp_cuda(*in4, gbar4, sysd)
+    e8 = grads_close("B8 at the two-qubit training shape", ("pulses", "delta1", "delta2", "eps"),
+                     (1e-5,) * 4, g8, g_p, g64)
+    e85 = max_err(g8, g_k)
+    if not e85 <= SU4_B8_B5_TOL:
+        raise AssertionError(f"B8 at the two-qubit training shape: |B8 - B5 seeded by B4| "
+                             f"{e85:.3e} > {SU4_B8_B5_TOL:.0e}")
+    b8_row = row("B8", "check-su4-train", shape4, e8[0],
+                 time_ms(lambda: su4_objective_vjp_cuda(*in4, gbar4, sysd), 20),
+                 time_ms(lambda: su4_objective_vjp_plain(*in4, gbar4, sysd), 2),
+                 su4_vjp_bound(*shape4, rebuild=True))
+    b8_row.update(b4_plus_b5_ms=b4_row["ms"] + b5_row["ms"], max_abs_err_vs_b5=e85,
+                  vs_f64={"kernel": e8[1], "plain": e8[2]})
+    # the per-gate paths: B7 at the GRAPE curve's shape (the CLI's pulse,
+    # σ_δ = 0.3), B4 / B5 at the polish step's (the flagship's 5 tables,
+    # σ_δ = 0.2, M = 4096, the polish's ḡ = 1 / (5 gates × 3 terms)), B6 at
+    # the polish eval's; the variants: B6 on the bundle's L = 40 tables, B7
+    # at the cz_drive2 sweep's shape (20 σ × VARIANT_SWEEP_M)
+    gen4 = torch.Generator(device=dev).manual_seed(11)
+    grape_p = torch.as_tensor(gq["pulses"], device=dev)[None].contiguous()
+    d_curve = tuple(torch.randn((1, 4096), generator=gen4, device=dev) * s
+                    for s in (0.3, 0.3, 0.05))
+    b7_grape = su4_prop_row("grape-su4", (grape_p, *d_curve), sysd)
+    pk = pq["packed"]
+    pol_t = (pk[:, 0].contiguous(), pk[:, 1].contiguous())
+    d_pol = tuple(torch.randn((5, 4096), generator=gen4, device=dev) * s
+                  for s in (0.2, 0.2, 0.05))
+    b4_pol, b5_pol, _ = su4_train_rows("polish-su4", (pq["pulses0"], *pol_t, *d_pol),
+                                       torch.full((5,), 1.0 / 15, device=dev), sysd)
+    b6_pol = su4_fid_row("polish-su4", (pq["pulses0"], *pol_t, *serve_draws), sysd)
+    vk = vq["packed"]
+    b6_var = su4_fid_row("serve-su4-variants", (vq["pulses"].contiguous(), vk[:, 0].contiguous(),
+                                                vk[:, 1].contiguous(), *serve_draws), sysd)
+    st = torch.as_tensor(np.arange(0.02, 0.42, 0.02), dtype=torch.float32, device=dev)[:, None]
+    nv = [torch.randn((20, VARIANT_SWEEP_M), generator=gen4, device=dev) for _ in range(3)]
+    b7_var = su4_prop_row("serve-su4-variants",
+                          (torch.as_tensor(vq["d2_pulses"], device=dev)[None].contiguous(),
+                           *((n * st).reshape(1, -1).contiguous() for n in nv[:2]),
+                           (0.05 * nv[2]).reshape(1, -1).contiguous()), sysd)
     kernels = [fid_row("serve", pulses, q_t, delta, eps, 20), b1_train, b2_train,
                prop_row("serve", p1, d1, e1, 20), prop_row("train", pt, dt_, et_, 50),
-               b6_row, b7_row, b4_row, b5_row, b6_train]
+               b6_row, b7_row, b4_row, b5_row, b6_train, b8_row, b7_grape, b4_pol, b5_pol,
+               b6_pol, b6_var, b7_var]
     for k in kernels:
         print(f"  {k['name']} [{k['path']}] {k['shape']}: {k['ms']:.4f} ms, plain "
               f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "
@@ -1186,7 +1582,10 @@ def main() -> int:
           f"{b1_train['fwd_bwd_plain_ms']:.3f} ms")
     print(f"  B4 + B5 [train-su4] forward + backward through mean_fidelity_su4_cuda "
           f"{b4_row['fwd_bwd_ms']:.4f} ms, plain {b4_row['fwd_bwd_plain_ms']:.3f} ms; B5 vs "
-          f"f64: kernel {e5[1]:.2e}, plain {e5[2]:.2e}")
+          f"f64: kernel {b5_row['vs_f64']['kernel']:.2e}, plain {b5_row['vs_f64']['plain']:.2e}")
+    print(f"  B8 at the training shape {b8_row['ms']:.4f} ms beside B4 + B5 "
+          f"{b8_row['b4_plus_b5_ms']:.4f} ms; |B8 - B5 seeded by B4| {e85:.2e}; B8 vs f64 "
+          f"{e8[1]:.2e} (plain {e8[2]:.2e})")
     phase("time", t0, "CUDA events, after a warm-up")
 
     print(f"total {time.perf_counter() - t_total:.2f} s")

@@ -1,6 +1,7 @@
 """PyTorch port on a CUDA card: the hand-written kernels B1, B2, B3, B4,
-B5, B6 and B7 against their plain versions, their input checks and their
-launch counters, B1's backward (B3 + B2) against autograd through its plain
+B5, B6, B7 and B8 against their plain versions (B8 also against B5 seeded
+by B4, within 1e-6: the same product code and the same sweep), their input
+checks and their launch counters, B1's backward (B3 + B2) against autograd through its plain
 version, and the SU(4) mean fidelity's backward (B4 + B5) against autograd
 through its plain version.
 
@@ -323,3 +324,36 @@ def test_su4_training_inputs_are_checked_not_converted(card):
     with pytest.raises(TypeError, match="float32"):
         t4.mean_fidelity_su4_with_product_cuda(pulses.double(), tr, ti, d1, d2, ep, sys_)
     assert t4.su4_objective_vjp_from_product_cuda.launches == before
+
+
+@pytest.mark.parametrize("P,L,M", [(2, 3, 1), (3, 7, 200), (4, 7, 1000), (4, 24, 300)])
+def test_b8_matches_plain_and_b5_seeded_by_b4(card, P, L, M):
+    pulses, tr, ti, d1, d2, ep, sys_ = su4_inputs(P, M, card, L=L, seed=L)
+    gbar = su4_gbar(3, card)
+    before = (t4.su4_objective_vjp_cuda.launches,
+              t4.su4_objective_vjp_from_product_cuda.launches)
+    got = t4.su4_objective_vjp_cuda(pulses, tr, ti, d1, d2, ep, gbar, sys_)
+    assert (t4.su4_objective_vjp_cuda.launches,
+            t4.su4_objective_vjp_from_product_cuda.launches) == (before[0] + 1, before[1])
+    _, prod = t4.mean_fidelity_su4_with_product_cuda(pulses, tr, ti, d1, d2, ep, sys_)
+    seeded = t4.su4_objective_vjp_from_product_cuda(pulses, tr, ti, d1, d2, ep, gbar, prod,
+                                                    sys_)
+    torch.cuda.synchronize()
+    want = t4.su4_objective_vjp_plain(pulses, tr, ti, d1, d2, ep, gbar, sys_)
+    assert got[0].shape == (3, L, P) and all(g.shape == (3, M) for g in got[1:])
+    for name, a, b, c in zip(("pulses", "delta1", "delta2", "eps"), got, want, seeded):
+        torch.testing.assert_close(a, b, atol=SU4_GRAD_TOL, rtol=0, msg=name)
+        torch.testing.assert_close(a, c, atol=1e-6, rtol=0, msg=name)
+
+
+def test_b8_inputs_are_checked_not_converted(card):
+    pulses, tr, ti, d1, d2, ep, sys_ = su4_inputs(4, 64, card)
+    gbar = su4_gbar(3, card)
+    before = t4.su4_objective_vjp_cuda.launches
+    with pytest.raises(ValueError, match="gbar must be"):
+        t4.su4_objective_vjp_cuda(pulses, tr, ti, d1, d2, ep, gbar[:2], sys_)
+    with pytest.raises(TypeError, match="float32"):
+        t4.su4_objective_vjp_cuda(pulses, tr, ti, d1, d2, ep, gbar.double(), sys_)
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        t4.su4_objective_vjp_cuda(pulses, tr, ti, d1, d2, ep, gbar.cpu(), sys_)
+    assert t4.su4_objective_vjp_cuda.launches == before

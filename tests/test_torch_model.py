@@ -288,13 +288,16 @@ TWO_QUBIT_SERVING = ("core/su4.py", "ops/propagate_su4.py", "data/su4_targets.py
                      "models/two_qubit.py", "optimizers/__init__.py",
                      "optimizers/two_qubit_grape.py", "workloads/two_qubit_eval.py",
                      "analysis/plots_su4.py")
+TWO_QUBIT_PER_GATE = ("workloads/two_qubit_grape.py", "workloads/finetune_two_qubit_gates.py",
+                      "analysis/dephasing_bound.py", "analysis/two_qubit_split_eval.py",
+                      "demo/app.py")
 
 
 def test_port_imports_nothing_forbidden():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
     assert {str(p.relative_to(PORT)) for p in files if PORT in p.parents} >= \
-        set(TRAINING_HALF) | set(TWO_QUBIT_SERVING)
+        set(TRAINING_HALF) | set(TWO_QUBIT_SERVING) | set(TWO_QUBIT_PER_GATE)
     for path in files:
         for mod in _imports(path):
             assert not any(mod == f or mod.startswith(f + ".") for f in FORBIDDEN), \
@@ -315,7 +318,9 @@ def test_port_import_loads_no_jax():
         "        'training.resume', 'training.metrics', 'workloads.universal_single_qubit',\n"
         "        'core.su4', 'ops.propagate_su4', 'data.su4_targets', 'models.two_qubit',\n"
         "        'optimizers.two_qubit_grape', 'workloads.two_qubit_eval',\n"
-        "        'workloads.two_qubit',\n"
+        "        'workloads.two_qubit', 'workloads.two_qubit_grape',\n"
+        "        'workloads.finetune_two_qubit_gates', 'analysis.dephasing_bound',\n"
+        "        'analysis.two_qubit_split_eval', 'demo.app',\n"
         "        'analysis.plots_su4']\n"
         "missing = [m for m in need if p.__name__ + '.' + m not in sys.modules]\n"
         "print(bad, missing)\n"

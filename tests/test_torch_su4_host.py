@@ -16,7 +16,11 @@ for the CPU with the CUDA qualifiers defined away.  Two builds:
   L ∈ {3, 7}, with a non-uniform per-target cotangent;
 * a float that counts its operations (an FMA counts 2, a negation 0): the
   flops per segment and per sample must be the counts ``chip_smoke.py``
-  takes its B4/B6/B7 and B5 bounds from.
+  takes its B4/B6/B7, B5 and B8 bounds from.
+
+The sweep test's sample is B8's per-sample code as it stands in the kernel
+(``compose()``, ``seed()``, ``reverse_sweep()``), which is B5's seeded with
+B4's product.
 
 Skipped where no ``g++`` is on the PATH.
 """
@@ -101,6 +105,22 @@ void count_sweep(CF* row, int L) {
   printf("%lld\n", nflops);
 }
 
+// B8's sample: the product (compose()), the seed, then the same sweep
+template <int P>
+void count_rebuild(CF* row, int L) {
+  CF stash[64], t[32];
+  for (int e = 0; e < 32; ++e) t[e] = CF(0.1 * e);
+  std::vector<double> acc(L * P, 0.0);
+  HostSink<P> sink{acc.data()};
+  CF dd1 = 0.0, dd2 = 0.0, de = 0.0;
+  nflops = 0;
+  const Mat W = compose(row, L, CF(0.1), CF(-0.2), CF(0.03), CF(0.5), 4);
+  stash_store(stash, 1, seed(W, t, t + 16, CF(0.01)));
+  reverse_sweep<P>(row, L, CF(0.1), CF(-0.2), CF(0.03), CF(0.5), CF(0.1), 4, CF(1.0 / 16),
+                   stash, 1, dd1, dd2, de, sink);
+  printf("%lld\n", nflops);
+}
+
 int main() {
   CF pulses[8] = {0.3, -0.2, 0.7, 0.1, 1.2, 0.4, 0.6, 0.2};
   for (int L = 1; L <= 2; ++L) {
@@ -122,6 +142,13 @@ int main() {
     count_sweep<2>(row, L);
     count_sweep<3>(row, L);
     count_sweep<4>(row, L);
+  }
+  for (int L = 1; L <= 2; ++L) {
+    CF row[20];
+    stage_row<4, true>(pulses, 0, L, CF(0.1), CF(1.0 / 16), row);
+    count_rebuild<2>(row, L);
+    count_rebuild<3>(row, L);
+    count_rebuild<4>(row, L);
   }
 }
 #else
@@ -304,3 +331,16 @@ def test_reverse_sweep_flops_on_the_host_are_the_bound_counts(host_builds):
     for P, c1, c2 in zip((2, 3, 4), one, two):
         assert c2 - c1 == chip_smoke.SU4_VJP_FLOPS_PER_SEGMENT[P], P
         assert seed + c1 - (c2 - c1) == chip_smoke.SU4_VJP_FLOPS_PER_SAMPLE, P
+
+
+def test_rebuild_sweep_flops_on_the_host_are_the_bound_counts(host_builds):
+    """B8 per segment (the product's segment and B5's) and per sample (the
+    product's energies and (1 + ε)/2, then B5's per-sample work)."""
+    counts = [int(v) for v in subprocess.run(
+        [str(host_builds["count"])], capture_output=True, text=True,
+        check=True).stdout.split()[9:]]
+    one, two = counts[0:3], counts[3:6]
+    for P, c1, c2 in zip((2, 3, 4), one, two):
+        assert c2 - c1 == chip_smoke.SU4_B8_FLOPS_PER_SEGMENT[P] \
+            == chip_smoke.SU4_FLOPS_PER_SEGMENT + chip_smoke.SU4_VJP_FLOPS_PER_SEGMENT[P], P
+        assert c1 - (c2 - c1) == chip_smoke.SU4_B8_FLOPS_PER_SAMPLE, P

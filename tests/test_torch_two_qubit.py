@@ -81,8 +81,9 @@ def test_named_gates_and_variants_match_jax():
         np.testing.assert_array_equal(t[k], j[k])
     for name, spec in tapp.TWO_QUBIT_VARIANTS.items():
         assert spec == japp.TWO_QUBIT_VARIANTS[name], name
-    assert set(tapp.TWO_QUBIT_VARIANTS) == {"two_qubit_d2_kak", "two_qubit_d2_kak_s0",
-                                            "two_qubit_d2_kak_s04"}
+    assert set(tapp.TWO_QUBIT_VARIANTS) == set(japp.TWO_QUBIT_VARIANTS) == {
+        "two_qubit_d2_kak", "two_qubit_d2_kak_s0", "two_qubit_d2_kak_s04", "two_qubit_gates",
+        "cz_robust", "cz_drive2"}
     ckpt, kw = tapp.two_qubit_model_kwargs("two_qubit_d2_kak_s0")
     assert ckpt.endswith("two_qubit_d2_kak_s0.npz") and kw["max_pulses"] == 40
 
@@ -247,8 +248,13 @@ def test_eval_cli_on_the_cpu(tmp_path):
     assert "| cz |" in out.read_text()
     with np.load(npz) as z:
         assert z["pulses_0"].shape == (100, 4)
-    with pytest.raises(NotImplementedError, match="A.16"):
-        te.main(argv + ["--polish"])
+    # --polish: per-gate blocks GRAPE (tiny), a "(GRAPE)" row per gate
+    polished = te.main(argv + ["--polish", "--polish_starts", "2", "--polish_steps", "2"])
+    assert all(len(r["grape"]) == 2 and 0.0 < min(r["grape"]) and max(r["grape"]) <= 1.0
+               for r in polished.values())
+    np.testing.assert_allclose([r["model"] for r in polished.values()],
+                               [r["model"] for r in rows.values()], rtol=0, atol=0)
+    assert "| cz (GRAPE) |" in out.read_text()
     with pytest.raises(ValueError, match=r"\.npz"):
         te.load_two_qubit_model("weights/dir:tag", device="cpu")
 

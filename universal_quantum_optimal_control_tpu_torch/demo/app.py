@@ -1,12 +1,16 @@
 r"""Serve the trained universal models: rotation → pulse table.
 
 The serving half of the JAX package's ``demo/app.py``: the single-qubit
-variant map, a cached model loader and ``compute_pulses``, and the
-two-qubit model variants (``TWO_QUBIT_VARIANTS``, served through
-``workloads/two_qubit_eval.py``).  Plotting, Gradio, the per-gate bundles
-and the pulse-table variants are not ported yet.  The configs and ``.npz``
-weights are the JAX package's own files, read where they lie (reading a
-data file imports nothing of that package).
+variant map, a cached model loader and ``compute_pulses``; the two-qubit
+variants (``TWO_QUBIT_VARIANTS``: the three model variants, served through
+``workloads/two_qubit_eval.py``, the ``two_qubit_gates`` per-gate bundle
+and the ``cz_robust`` / ``cz_drive2`` pulse tables) with the numeric half
+of ``render_two_qubit_artifacts``: the pulse table it picks
+(:func:`two_qubit_pulse_table`) and its E[F](σ_δ) sweep through kernel B7
+(:func:`two_qubit_robustness`).  The CSV, the figures, Gradio and the
+single-qubit gate bundles are not ported yet (``ROADMAP.md`` A.18, A.19).
+The configs and ``.npz`` weights are the JAX package's own files, read
+where they lie (reading a data file imports nothing of that package).
 """
 
 from __future__ import annotations
@@ -18,13 +22,19 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..analysis.plots_su4 import fidelity_by_std_su4
 from ..core.su2 import rotation_vector_to_quat
+from ..core.su4 import TwoQubitSystem
 from ..models import (Pipeline, UniversalQOCTransformer, load_params_npz,
                       normalize_pulse_space, params_from_jax)
+from ..optimizers.two_qubit_grape import named_two_qubit_targets
+from ..training.systems import SU4System
 from ..utils import load_model_params, resolve_device
+from ..workloads.finetune_two_qubit_gates import load_two_qubit_gate_bundle
+from ..workloads.two_qubit_eval import model_gate_pulses
 
 __all__ = ["MODEL_VARIANTS", "TWO_QUBIT_VARIANTS", "load_pipeline", "compute_pulses",
-           "two_qubit_model_kwargs"]
+           "two_qubit_model_kwargs", "two_qubit_pulse_table", "two_qubit_robustness"]
 
 _JAX_PACKAGE_DIR = (Path(__file__).resolve().parent.parent.parent
                     / "universal_quantum_optimal_control_tpu")
@@ -41,10 +51,14 @@ MODEL_VARIANTS: Dict[str, Dict] = {
 }
 
 
-# Two-qubit universal models (drive2 system, KAK tokens; d512 × 8 layers,
-# 16 heads): the flagship (L = 100, σ_δ 0.05–0.3) and its σ_δ < 0.05 and
-# σ_δ ≥ 0.35 bands.  ``_s0`` is the L = 40 artifact: no ``max_pulses``, so
-# the JAX default of 40 applies.
+# Two-qubit variants.  "Model" variants run a universal two-qubit model
+# (drive2 system, KAK tokens; d512 × 8 layers, 16 heads): the flagship
+# (L = 100, σ_δ 0.05–0.3) and its σ_δ < 0.05 and σ_δ ≥ 0.35 bands
+# (``_s0`` is the L = 40 artifact: no ``max_pulses``, so the JAX default of
+# 40 applies).  ``two_qubit_gates`` serves the per-gate finetuned tables of
+# its bundle (L = 40) for the named gates it holds and the flagship
+# elsewhere; ``cz_robust`` (P = 3, the χ-only system) and ``cz_drive2``
+# (P = 4, drive2) are single L = 20 CZ pulse tables.
 TWO_QUBIT_VARIANTS: Dict[str, Dict] = {
     "two_qubit_d2_kak": {
         "checkpoint": str(_WEIGHTS_DIR / "two_qubit_d2_kak.npz"),
@@ -57,17 +71,77 @@ TWO_QUBIT_VARIANTS: Dict[str, Dict] = {
         "checkpoint": str(_WEIGHTS_DIR / "two_qubit_d2_kak_s04.npz"),
         "drive2": True, "kak_tokens": True, "omega_min": 0.05,
         "max_pulses": 100},
+    "two_qubit_gates": {
+        "checkpoint": str(_WEIGHTS_DIR / "two_qubit_d2_kak.npz"),
+        "drive2": True, "kak_tokens": True, "omega_min": 0.05,
+        "max_pulses": 100,
+        "gate_bundle": str(_WEIGHTS_DIR / "two_qubit_gates.npz")},
+    "cz_robust": {"pulse_npz": str(_WEIGHTS_DIR / "cz_robust_pulse.npz")},
+    "cz_drive2": {"pulse_npz": str(_WEIGHTS_DIR / "cz_drive2_pulse.npz"),
+                  "drive2": True},
 }
+
+_MODEL_KEYS = ("drive2", "kak_features", "kak_tokens", "omega_min", "max_pulses",
+               "d_model", "n_layers", "n_heads")
 
 
 def two_qubit_model_kwargs(variant: str) -> Tuple[str, Dict]:
-    """``(checkpoint, keywords)`` of a two-qubit variant for
+    """``(checkpoint, keywords)`` of a two-qubit model variant for
     ``workloads.two_qubit_eval.model_gate_pulses`` / ``best_phase_pulses``,
     with ``max_pulses`` explicit (40 where the variant names none)."""
-    spec = dict(TWO_QUBIT_VARIANTS[variant])
-    checkpoint = spec.pop("checkpoint")
-    spec.setdefault("max_pulses", 40)
-    return checkpoint, spec
+    spec = TWO_QUBIT_VARIANTS[variant]
+    if "checkpoint" not in spec:
+        raise ValueError(f"two-qubit variant {variant!r} serves a fixed pulse table, "
+                         f"not a model")
+    kw = {k: spec[k] for k in _MODEL_KEYS if k in spec}
+    kw.setdefault("max_pulses", 40)
+    return spec["checkpoint"], kw
+
+
+def two_qubit_pulse_table(variant: str, gate: str = "cz", device=None
+                          ) -> Tuple[np.ndarray, np.ndarray, TwoQubitSystem, str]:
+    """The pulse table a two-qubit variant serves, as the JAX package's
+    ``render_two_qubit_artifacts`` picks it: ``(pulses (L, P) f32, u_target
+    (4, 4) complex, system, label)``.
+
+    A ``pulse_npz`` variant serves its ``pulses`` / ``u_target`` (``gate`` is
+    not read); otherwise ``gate`` must be a named gate: the variant's gate
+    bundle's table where the bundle holds it, else the variant's model on
+    the textbook matrix (no ℤ₄ choice), run on ``device``."""
+    spec = TWO_QUBIT_VARIANTS[variant]
+    system = TwoQubitSystem(drive2=spec.get("drive2", False))
+    if "pulse_npz" in spec:
+        with np.load(spec["pulse_npz"]) as z:
+            return z["pulses"], z["u_target"], system, variant
+    targets = named_two_qubit_targets()
+    if gate not in targets:
+        raise ValueError(f"unknown gate {gate!r}; available: {sorted(targets)}")
+    u_target = targets[gate]
+    bundle = spec.get("gate_bundle")
+    tables = load_two_qubit_gate_bundle(bundle)[0] if bundle and Path(bundle).exists() else {}
+    if gate in tables:
+        pulses = np.asarray(tables[gate])
+    else:
+        checkpoint, kw = two_qubit_model_kwargs(variant)
+        packed = SU4System.pack_target(u_target[None]).to(resolve_device(device))
+        pulses = model_gate_pulses(checkpoint, packed, **kw)[0].cpu().numpy()
+    return pulses, u_target, system, f"{variant}:{gate}"
+
+
+def two_qubit_robustness(variant: str, gate: str = "cz", monte_carlo: int = 2000,
+                         device=None) -> Dict:
+    """The numbers behind the JAX demo's E[F](σ_δ) figure of a two-qubit
+    variant: its pulse table (:func:`two_qubit_pulse_table`) swept over the
+    demo's grid σ_δ = 0.02, 0.04, …, 0.40 through kernel B7
+    (``analysis/plots_su4.py::fidelity_by_std_su4``, its default draws).
+    Returns ``{"label", "pulses", "u_target", "system", "stds", "mean",
+    "se"}``."""
+    pulses, u_target, system, label = two_qubit_pulse_table(variant, gate, device)
+    stds, mean, se = fidelity_by_std_su4(pulses, u_target, system,
+                                         stds=np.arange(0.02, 0.42, 0.02),
+                                         monte_carlo=monte_carlo, device=device)
+    return {"label": label, "pulses": pulses, "u_target": u_target, "system": system,
+            "stds": stds, "mean": mean, "se": se}
 
 
 @functools.lru_cache(maxsize=4)

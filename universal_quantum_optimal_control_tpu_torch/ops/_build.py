@@ -2,7 +2,7 @@ r"""Build and load the port's CUDA kernels: one ``nvcc`` call per source,
 bound by ctypes.
 
 Each source under ``ops/csrc/`` (``propagate_su2.cu``: B1, B2, B3;
-``propagate_su4.cu``: B4, B6, B7; ``propagate_su4_bwd.cu``: B5; all include
+``propagate_su4.cu``: B4, B6, B7; ``propagate_su4_bwd.cu``: B5, B8; all include
 ``common.cuh``, the SU(4) two ``su4.cuh``) is compiled for ``sm_90a`` into
 a shared library with a plain C interface,
 ``build/torch_kernels/libuqoc_<name>.so`` at the root of the checkout.  No
@@ -140,6 +140,10 @@ def _declare_su4_bwd(lib: ctypes.CDLL) -> None:
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
         i32, i32, i32, i64, f32, f32, i32, ptr]
     lib.uqoc_su4_objective_vjp.restype = i32
+    lib.uqoc_su4_objective_vjp_rebuild.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        i32, i32, i32, i64, f32, f32, i32, ptr]
+    lib.uqoc_su4_objective_vjp_rebuild.restype = i32
 
 
 _DECLARE = {"su2": _declare_su2, "su4": _declare_su4, "su4_bwd": _declare_su4_bwd}

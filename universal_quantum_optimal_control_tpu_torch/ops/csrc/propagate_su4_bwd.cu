@@ -1,14 +1,19 @@
-// SU(4) reverse-sweep VJP kernel for Hopper (sm_90a).
+// SU(4) reverse-sweep VJP kernels for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel
+// Replaces two Pallas TPU kernels of the JAX package:
 //   B5  universal_quantum_optimal_control_tpu/ops/propagate_su4_pallas_bwd.py:_bwd_prod_kernel
-//       -> su4_vjp_kernel + reduce_columns_kernel: the VJP of the per-target
-//          mean fidelity (B4 / B6, propagate_su4.cu) under a per-target
-//          cotangent gbar (B,), seeded with B4's saved per-sample product
-//          (B, 32, M) -> dpulses (B, L, P), dd1, dd2, deps (B, M).
+//       -> su4_vjp_kernel<P, false> + reduce_columns_kernel: the VJP of the
+//          per-target mean fidelity (B4 / B6, propagate_su4.cu) under a
+//          per-target cotangent gbar (B,), seeded with B4's saved per-sample
+//          product (B, 32, M) -> dpulses (B, L, P), dd1, dd2, deps (B, M).
+//   B8  universal_quantum_optimal_control_tpu/ops/propagate_su4_pallas_bwd.py:_bwd_kernel
+//       -> su4_vjp_kernel<P, true> + reduce_columns_kernel: the same VJP
+//          without a saved product: each thread first forms its sample's
+//          product P = U_L ... U_1 with compose() (B4's code, in registers),
+//          then runs B5's seed and sweep.
 //
 // Math (su4.cuh, reverse_sweep): per sample, the fidelity's cotangent G at
-// the saved product P gives the seed V = G P^H; for k = L-1 .. 0 the segment
+// the product P gives the seed V = G P^H; for k = L-1 .. 0 the segment
 // is rebuilt (A, its powers, T8(A), the squarings), its cotangent
 // D = dL/dA is formed, chained to (phi1, [phi2,] [Omega,] tau) and to
 // (d1, d2, eps), and V <- U_k^H V U_k.  The TPU kernel applies the expm
@@ -17,13 +22,14 @@
 // themselves, which is the same sum (every term commutes, see
 // reverse_sweep), so no S_j is stored or rebuilt.
 //
-// What bounds it on an H100: arithmetic, as B4.  Per (sample, segment) it
+// What bounds them on an H100: arithmetic, as B4.  Per (sample, segment) B5
 // rebuilds the segment (973 flops before the squarings), runs the T8
 // adjoint (3552 flops of products with A, A^2, A^4 and Q^H), four
 // squarings (544 each) beside four squaring adjoints (1056 each), 20
 // entries of D = E U_k (316), the chain rule (57-65) and V <- U_k^H V U_k
 // (960): 12264-12274 flops, 3.4 times B4's 3661, against 140 bytes per
-// sample read (the product, d1, d2, eps) and 12 written.
+// sample read (the product, d1, d2, eps) and 12 written.  B8 adds B4's 3661
+// per segment for the product and reads 12 bytes per sample instead of 140.
 //
 // What the design does about it:
 //   * one thread per (b, m) sample, as B4; the per-segment scalars (the
@@ -33,7 +39,9 @@
 //   * registers: V and S_0 = T8(A) are set aside in a per-thread column of
 //     shared memory while a segment's other matrices are live (each phase
 //     holds at most four dense matrices besides A, A^2, A^4), and D is
-//     formed only at the 20 entries the chain rule reads;
+//     formed only at the 20 entries the chain rule reads.  B8's product
+//     phase is B4's (128 registers there); its registers are free again
+//     once the seed is in shared memory, so the sweep's pressure is B5's;
 //   * dphi, dOmega, dtau are sums over the M samples of one target: a
 //     warp-shuffle sum per segment into this warp's slot of a shared
 //     [warps][L * P] buffer, a fixed-order sum over warps into one partial
@@ -46,7 +54,7 @@
 //     above 48 KB the launcher opts in with cudaFuncSetAttribute and reports
 //     the card's refusal past its limit.
 //
-// Interface: an extern "C" launcher returning cudaError_t (the launch status
+// Interface: extern "C" launchers returning cudaError_t (the launch status
 // from cudaGetLastError), loaded with ctypes.  The caller owns every buffer
 // and passes PyTorch's current stream; nothing here allocates or syncs.
 
@@ -82,9 +90,10 @@ struct WarpSink {
   }
 };
 
-// B5, pass 1: grid (ceil(M / kThreads), B); partials is
+// B5 (kRebuild false: reads prod) and B8 (kRebuild true: prod is unused and
+// may be null), pass 1: grid (ceil(M / kThreads), B); partials is
 // (B, gridDim.x, L * P), each entry one block's sum over its samples.
-template <int P>
+template <int P, bool kRebuild>
 __global__ void __launch_bounds__(kThreads)
 su4_vjp_kernel(const float* __restrict__ pulses, const float* __restrict__ t_re,
                const float* __restrict__ t_im, const float* __restrict__ gbar,
@@ -111,11 +120,17 @@ su4_vjp_kernel(const float* __restrict__ pulses, const float* __restrict__ t_re,
   const bool active = m < M;
   const int64_t i = static_cast<int64_t>(b) * M + m;
   Mat Pp;
-  const float* src = prod + static_cast<int64_t>(b) * 32 * M + m;
+  if constexpr (kRebuild) {
+    // the row's first 6 L floats are compose()'s (stage_row's layout)
+    Pp = su4::compose(row, L, active ? d1[i] : 0.0f, active ? d2[i] : 0.0f,
+                      active ? eps[i] : 0.0f, coupling, scaling);
+  } else {
+    const float* src = prod + static_cast<int64_t>(b) * 32 * M + m;
 #pragma unroll
-  for (int e = 0; e < 16; ++e) {
-    Pp.re[e] = active ? src[e * M] : 0.0f;
-    Pp.im[e] = active ? src[(16 + e) * M] : 0.0f;
+    for (int e = 0; e < 16; ++e) {
+      Pp.re[e] = active ? src[e * M] : 0.0f;
+      Pp.im[e] = active ? src[(16 + e) * M] : 0.0f;
+    }
   }
   // g = gbar / M * 2 / 20; 0 past M, so those threads add exactly 0
   const float g = active ? gbar[b] * inv_m * 0.1f : 0.0f;
@@ -153,7 +168,7 @@ inline size_t smem_bytes(int L, int P) {
                           static_cast<size_t>(kStashFloats) * kThreads);
 }
 
-template <int P>
+template <int P, bool kRebuild>
 cudaError_t launch_vjp(dim3 grid, size_t smem, cudaStream_t s, const float* pulses,
                        const float* t_re, const float* t_im, const float* gbar,
                        const float* d1, const float* d2, const float* eps,
@@ -164,60 +179,47 @@ cudaError_t launch_vjp(dim3 grid, size_t smem, cudaStream_t s, const float* puls
     // beside the static target row; refused past the card's opt-in limit
     // (227 KB on sm_90)
     const cudaError_t err = cudaFuncSetAttribute(
-        su4_vjp_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        su4_vjp_kernel<P, kRebuild>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) {
       cudaGetLastError();  // clear it, so no later launch reports it
       return err;
     }
   }
-  su4_vjp_kernel<P><<<grid, kThreads, smem, s>>>(
+  su4_vjp_kernel<P, kRebuild><<<grid, kThreads, smem, s>>>(
       pulses, t_re, t_im, gbar, d1, d2, eps, prod, partials, dd1, dd2, deps, L, M,
       xtalk, coupling, scaling, tau_scale, inv_m);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Blocks of pass 1 per target; the caller sizes the partials buffer
-// (B, n, L * P).
-int uqoc_su4_vjp_num_blocks(int64_t M) { return static_cast<int>(num_blocks(M)); }
-
-// pulses (B, L, P), t_re / t_im (B, 4, 4), gbar (B,), d1 / d2 / eps (B, M),
-// prod (B, 32, M) from B4 on the same inputs, partials scratch,
-// dpulses (B, L, P), dd1 / dd2 / deps (B, M); all f32, contiguous.  P = 4 is
-// the drive2 system (the wrapper checks it).
-cudaError_t uqoc_su4_objective_vjp(const float* pulses, const float* t_re,
-                                   const float* t_im, const float* gbar,
-                                   const float* d1, const float* d2,
-                                   const float* eps, const float* prod,
-                                   float* partials, float* dpulses, float* dd1,
-                                   float* dd2, float* deps, int B, int L, int P,
-                                   int64_t M, float xtalk, float coupling,
-                                   int scaling, void* stream) {
+// B5 (kRebuild false) or B8: both passes.
+template <bool kRebuild>
+cudaError_t objective_vjp(const float* pulses, const float* t_re, const float* t_im,
+                          const float* gbar, const float* d1, const float* d2,
+                          const float* eps, const float* prod, float* partials,
+                          float* dpulses, float* dd1, float* dd2, float* deps, int B,
+                          int L, int P, int64_t M, float xtalk, float coupling,
+                          int scaling, cudaStream_t s) {
   const dim3 grid(num_blocks(M), B);
   const size_t smem = smem_bytes(L, P);
   const float tau_scale = std::ldexp(1.0f, -scaling);
   const float inv_m = 1.0f / static_cast<float>(M);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (P) {
     case 2:
-      err = launch_vjp<2>(grid, smem, s, pulses, t_re, t_im, gbar, d1, d2, eps, prod,
-                          partials, dd1, dd2, deps, L, M, xtalk, coupling, scaling,
-                          tau_scale, inv_m);
+      err = launch_vjp<2, kRebuild>(grid, smem, s, pulses, t_re, t_im, gbar, d1, d2, eps,
+                                    prod, partials, dd1, dd2, deps, L, M, xtalk, coupling,
+                                    scaling, tau_scale, inv_m);
       break;
     case 3:
-      err = launch_vjp<3>(grid, smem, s, pulses, t_re, t_im, gbar, d1, d2, eps, prod,
-                          partials, dd1, dd2, deps, L, M, xtalk, coupling, scaling,
-                          tau_scale, inv_m);
+      err = launch_vjp<3, kRebuild>(grid, smem, s, pulses, t_re, t_im, gbar, d1, d2, eps,
+                                    prod, partials, dd1, dd2, deps, L, M, xtalk, coupling,
+                                    scaling, tau_scale, inv_m);
       break;
     case 4:
-      err = launch_vjp<4>(grid, smem, s, pulses, t_re, t_im, gbar, d1, d2, eps, prod,
-                          partials, dd1, dd2, deps, L, M, xtalk, coupling, scaling,
-                          tau_scale, inv_m);
+      err = launch_vjp<4, kRebuild>(grid, smem, s, pulses, t_re, t_im, gbar, d1, d2, eps,
+                                    prod, partials, dd1, dd2, deps, L, M, xtalk, coupling,
+                                    scaling, tau_scale, inv_m);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -228,6 +230,45 @@ cudaError_t uqoc_su4_objective_vjp(const float* pulses, const float* t_re,
   uqoc::reduce_columns_kernel<kThreads><<<grid2, kThreads, 0, s>>>(
       partials, static_cast<int>(grid.x), lp, dpulses);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Blocks of pass 1 per target, B5 and B8; the caller sizes the partials
+// buffer (B, n, L * P).
+int uqoc_su4_vjp_num_blocks(int64_t M) { return static_cast<int>(num_blocks(M)); }
+
+// B5: pulses (B, L, P), t_re / t_im (B, 4, 4), gbar (B,), d1 / d2 / eps
+// (B, M), prod (B, 32, M) from B4 on the same inputs, partials scratch,
+// dpulses (B, L, P), dd1 / dd2 / deps (B, M); all f32, contiguous.  P = 4 is
+// the drive2 system (the wrapper checks it).
+cudaError_t uqoc_su4_objective_vjp(const float* pulses, const float* t_re,
+                                   const float* t_im, const float* gbar,
+                                   const float* d1, const float* d2,
+                                   const float* eps, const float* prod,
+                                   float* partials, float* dpulses, float* dd1,
+                                   float* dd2, float* deps, int B, int L, int P,
+                                   int64_t M, float xtalk, float coupling,
+                                   int scaling, void* stream) {
+  return objective_vjp<false>(pulses, t_re, t_im, gbar, d1, d2, eps, prod, partials,
+                              dpulses, dd1, dd2, deps, B, L, P, M, xtalk, coupling,
+                              scaling, static_cast<cudaStream_t>(stream));
+}
+
+// B8: as B5 without prod; each sample's product is formed in the kernel.
+cudaError_t uqoc_su4_objective_vjp_rebuild(const float* pulses, const float* t_re,
+                                           const float* t_im, const float* gbar,
+                                           const float* d1, const float* d2,
+                                           const float* eps, float* partials,
+                                           float* dpulses, float* dd1, float* dd2,
+                                           float* deps, int B, int L, int P, int64_t M,
+                                           float xtalk, float coupling, int scaling,
+                                           void* stream) {
+  return objective_vjp<true>(pulses, t_re, t_im, gbar, d1, d2, eps, nullptr, partials,
+                             dpulses, dd1, dd2, deps, B, L, P, M, xtalk, coupling,
+                             scaling, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

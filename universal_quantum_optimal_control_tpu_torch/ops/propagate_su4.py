@@ -1,7 +1,8 @@
-r"""SU(4) Monte-Carlo kernels B4, B5, B6 and B7: wrappers, plain versions,
-counters, and the autograd Function that trains through B4 and B5.
+r"""SU(4) Monte-Carlo kernels B4, B5, B6, B7 and B8: wrappers, plain
+versions, counters, and the autograd Function that trains through B4 and
+B5.
 
-Four hand-written CUDA kernels (``csrc/propagate_su4.cu`` and
+Five hand-written CUDA kernels (``csrc/propagate_su4.cu`` and
 ``csrc/propagate_su4_bwd.cu``, built by :mod:`._build`) replace the JAX
 package's Pallas kernels in ``ops/propagate_su4_pallas.py`` and
 ``ops/propagate_su4_pallas_bwd.py``:
@@ -22,6 +23,10 @@ package's Pallas kernels in ``ops/propagate_su4_pallas.py`` and
   ``_bwd_prod_kernel``): the VJP of the mean fidelity under a per-target
   cotangent ``gbar (B,)``, seeded with B4's product → ``(dpulses (B, L, P),
   dδ₁, dδ₂, dε (B, M))``.
+* :func:`su4_objective_vjp_cuda` (B8, replaces ``_bwd_kernel``): the same
+  VJP without B4's product; each sample's product is formed in the kernel
+  first.  The JAX package's ``su4_objective_vjp_pallas``, which no
+  workload there calls: training runs B4 and B5, here as there.
 
 P = 2 ``(φ, τ)`` (Ω ≡ 1), P = 3 ``(φ, Ω, τ)``, or P = 4 ``(φ₁, φ₂, Ω, τ)``
 on the drive2 system only.  The kernels hard-code the order-8
@@ -49,10 +54,12 @@ __all__ = [
     "mean_fidelity_su4_cuda",
     "mean_fidelity_su4_with_product_cuda",
     "su4_objective_vjp_from_product_cuda",
+    "su4_objective_vjp_cuda",
     "propagate_su4_mc_plain",
     "mean_fidelity_su4_plain",
     "mean_fidelity_su4_with_product_plain",
     "su4_objective_vjp_from_product_plain",
+    "su4_objective_vjp_plain",
 ]
 
 # dynamic shared memory a block may use without an opt-in attribute, less
@@ -92,21 +99,31 @@ def mean_fidelity_su4_with_product_plain(pulses: torch.Tensor, target_re: torch.
     return F, prod.transpose(1, 2).contiguous()
 
 
+def su4_objective_vjp_plain(pulses: torch.Tensor, target_re: torch.Tensor,
+                            target_im: torch.Tensor, delta1: torch.Tensor,
+                            delta2: torch.Tensor, epsilon: torch.Tensor,
+                            gbar: torch.Tensor, system: TwoQubitSystem = TwoQubitSystem()
+                            ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of B8: autograd through B6's plain version with
+    cotangent ``gbar`` → ``(dpulses, dδ₁, dδ₂, dε)``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (pulses, delta1, delta2, epsilon)]
+        F = mean_fidelity_su4_plain(leaves[0], target_re.detach(), target_im.detach(),
+                                    *leaves[1:], system)
+        return torch.autograd.grad(F, leaves, gbar)
+
+
 def su4_objective_vjp_from_product_plain(pulses: torch.Tensor, target_re: torch.Tensor,
                                          target_im: torch.Tensor, delta1: torch.Tensor,
                                          delta2: torch.Tensor, epsilon: torch.Tensor,
                                          gbar: torch.Tensor, prod: torch.Tensor,
                                          system: TwoQubitSystem = TwoQubitSystem()
                                          ) -> Tuple[torch.Tensor, ...]:
-    """Plain version of B5: autograd through B6's plain version with
-    cotangent ``gbar``.  ``prod`` is the kernel's residual; autograd keeps
-    its own and does not read it."""
+    """Plain version of B5: B8's.  ``prod`` is the kernel's residual;
+    autograd keeps its own and does not read it."""
     del prod
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(True) for t in (pulses, delta1, delta2, epsilon)]
-        F = mean_fidelity_su4_plain(leaves[0], target_re.detach(), target_im.detach(),
-                                    *leaves[1:], system)
-        return torch.autograd.grad(F, leaves, gbar)
+    return su4_objective_vjp_plain(pulses, target_re, target_im, delta1, delta2, epsilon,
+                                   gbar, system)
 
 
 def _refuse_unported(system: TwoQubitSystem) -> None:
@@ -128,14 +145,16 @@ def _check(pulses, delta1, delta2, epsilon, system: TwoQubitSystem,
            target_im: Optional[torch.Tensor] = None,
            gbar: Optional[torch.Tensor] = None,
            prod: Optional[torch.Tensor] = None) -> Tuple[int, int, int, int]:
-    """Validate the kernels' inputs; returns ``(B, L, P, M)``.  ``gbar`` and
-    ``prod`` (B5's) skip the B4/B6/B7 shared-memory limit: B5's launcher
+    """Validate the kernels' inputs; returns ``(B, L, P, M)``.  ``gbar``
+    (B5's and B8's) skips the B4/B6/B7 shared-memory limit: their launcher
     opts in to more and reports the card's refusal past its limit."""
     named = {"pulses": pulses, "delta1": delta1, "delta2": delta2, "epsilon": epsilon}
     if target_re is not None:
         named.update(target_re=target_re, target_im=target_im)
     if gbar is not None:
-        named.update(gbar=gbar, prod=prod)
+        named["gbar"] = gbar
+    if prod is not None:
+        named["prod"] = prod
     for name, t in named.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -222,6 +241,7 @@ def _launch_mean_fidelity(pulses, target_re, target_im, delta1, delta2, epsilon,
 
 
 def _launch_vjp(pulses, target_re, target_im, delta1, delta2, epsilon, gbar, prod, system):
+    """B5, or B8 where ``prod`` is None."""
     B, L, P, M = _check(pulses, delta1, delta2, epsilon, system, target_re, target_im,
                         gbar, prod)
     lib = load_library("su4_bwd")
@@ -230,15 +250,22 @@ def _launch_vjp(pulses, target_re, target_im, delta1, delta2, epsilon, gbar, pro
                            device=dev)
     dpulses = torch.empty((B, L, P), dtype=torch.float32, device=dev)
     dd1, dd2, deps = (torch.empty((B, M), dtype=torch.float32, device=dev) for _ in range(3))
+    inputs = (pulses.data_ptr(), target_re.data_ptr(), target_im.data_ptr(), gbar.data_ptr(),
+              delta1.data_ptr(), delta2.data_ptr(), epsilon.data_ptr())
+    outputs = (partials.data_ptr(), dpulses.data_ptr(), dd1.data_ptr(), dd2.data_ptr(),
+               deps.data_ptr(), B, L, P, M, *_system_args(system))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.uqoc_su4_objective_vjp(
-            pulses.data_ptr(), target_re.data_ptr(), target_im.data_ptr(), gbar.data_ptr(),
-            delta1.data_ptr(), delta2.data_ptr(), epsilon.data_ptr(), prod.data_ptr(),
-            partials.data_ptr(), dpulses.data_ptr(), dd1.data_ptr(), dd2.data_ptr(),
-            deps.data_ptr(), B, L, P, M, *_system_args(system), stream)
-    raise_on(lib, err, "su4_objective_vjp_from_product")
-    su4_objective_vjp_from_product_cuda.launches += 1
+        if prod is None:
+            err = lib.uqoc_su4_objective_vjp_rebuild(*inputs, *outputs, stream)
+        else:
+            err = lib.uqoc_su4_objective_vjp(*inputs, prod.data_ptr(), *outputs, stream)
+    if prod is None:
+        raise_on(lib, err, "su4_objective_vjp")
+        su4_objective_vjp_cuda.launches += 1
+    else:
+        raise_on(lib, err, "su4_objective_vjp_from_product")
+        su4_objective_vjp_from_product_cuda.launches += 1
     return dpulses, dd1, dd2, deps
 
 
@@ -343,3 +370,22 @@ def su4_objective_vjp_from_product_cuda(pulses: torch.Tensor, target_re: torch.T
 
 
 su4_objective_vjp_from_product_cuda.launches = 0
+
+
+def su4_objective_vjp_cuda(pulses: torch.Tensor, target_re: torch.Tensor,
+                           target_im: torch.Tensor, delta1: torch.Tensor,
+                           delta2: torch.Tensor, epsilon: torch.Tensor,
+                           gbar: torch.Tensor, system: TwoQubitSystem = TwoQubitSystem()
+                           ) -> Tuple[torch.Tensor, ...]:
+    """B8: the VJP of the mean fidelity under ``gbar (B,)`` → ``(dpulses,
+    dδ₁, dδ₂, dε)``, each sample's product formed in the kernel (B5 without
+    B4's residual)."""
+    tensors = (pulses, target_re, target_im, delta1, delta2, epsilon, gbar)
+    _refuse_unported(system)
+    if _route(*tensors) == "cpu":
+        _check(pulses, delta1, delta2, epsilon, system, target_re, target_im, gbar)
+        return su4_objective_vjp_plain(*tensors, system)
+    return _launch_vjp(*tensors, None, system)
+
+
+su4_objective_vjp_cuda.launches = 0

@@ -4,8 +4,9 @@ r"""Two-qubit named-gate evaluation — CLI entry point (PyTorch port of
 Per-named-gate E[F] of the shipped universal two-qubit model (default
 ``two_qubit_d2_kak.npz``: drive2, KAK tokens, L = 100) at σ_δ ∈ {0, 0.1,
 0.2} for CZ / ZZ(π/4) / CNOT / iSWAP / √SWAP, with common random numbers
-across σ and σ = 0 evaluated exactly.  The JAX CLI's flags and defaults,
-except:
+across σ and σ = 0 evaluated exactly; ``--polish`` adds a per-gate
+multi-start blocks GRAPE row (``(GRAPE)``) for the single-target
+comparison.  The JAX CLI's flags and defaults, except:
 
 * ``--backend`` defaults to ``pallas``: the scoring runs kernel B6 (also at
   σ = 0, with zero disorder at M = 1, and for ``--best_phase``'s choice).
@@ -14,8 +15,8 @@ except:
   not carry the main path on a card.  ``--backend xla`` stays for
   comparison.
 * ``--device`` (default ``cuda``; the CPU tests pass ``cpu``).
-* ``--polish`` (multi-start GRAPE training per gate) raises: the
-  two-qubit GRAPE optimizer is not ported yet (``ROADMAP.md`` A.16).
+* ``--polish``'s GRAPE draws from a ``torch.Generator`` seeded with 0 (the
+  JAX config's default seed), so its numbers differ from the JAX package's.
 * The checkpoint is a shipped ``.npz`` artifact (read where it lies in the
   JAX package's ``demo/weights/``); Orbax ``dir:tag`` checkpoints are the
   JAX package's own.
@@ -38,7 +39,8 @@ import torch
 from ..data.su4_targets import kak_input_tokens, z4_representatives
 from ..models import (TwoQubitQOCTransformer, load_params_npz, normalize_pulse_space,
                       params_from_jax)
-from ..optimizers.two_qubit_grape import named_two_qubit_targets
+from ..optimizers.two_qubit_grape import (TwoQubitGrapeConfig, multistart_grape_su4,
+                                          named_two_qubit_targets)
 from ..training.systems import SU4System
 from ..utils import resolve_device
 
@@ -162,8 +164,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--monte_carlo", type=int, default=20_000)
     p.add_argument("--epsilon_std", type=float, default=0.05)
     p.add_argument("--polish", action="store_true",
-                   help="per-gate multi-start GRAPE; not ported yet "
-                        "(ROADMAP.md A.16): raises")
+                   help="also run per-gate multi-start GRAPE (blocks mode) "
+                        "for the single-target comparison row")
+    p.add_argument("--polish_starts", type=int, default=16)
+    p.add_argument("--polish_steps", type=int, default=2000)
     p.add_argument("--out", default=None,
                    help="write the markdown table here as well")
     p.add_argument("--save_pulses", default=None,
@@ -197,13 +201,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> dict:
-    """Run the CLI; returns ``{gate: {"model": [E[F] per σ]}}``."""
+    """Run the CLI; returns ``{gate: {"model": [E[F] per σ], ["grape": ...]}}``."""
     args = build_parser().parse_args(argv)
-    if args.polish:
-        raise NotImplementedError(
-            "--polish runs per-gate multi-start GRAPE training "
-            "(optimizers/two_qubit_grape.py::multistart_grape_su4), which is not "
-            "ported yet (ROADMAP.md A.16)")
     dev = resolve_device(args.device)
     sigmas = [float(s) for s in args.sigmas.split(",")]
     system = SU4System(drive2=args.drive2, backend=args.backend)
@@ -223,6 +222,17 @@ def main(argv=None) -> dict:
     table = eval_pulse_tables(pulses, packed, sigmas, monte_carlo=args.monte_carlo,
                               epsilon_std=args.epsilon_std, system=system)
     rows = {g: {"model": [float(v) for v in table[i]]} for i, g in enumerate(names)}
+    if args.polish:
+        for i, g in enumerate(names):
+            cfg = TwoQubitGrapeConfig(mode="blocks", n_starts=args.polish_starts,
+                                      steps=args.polish_steps, drive2=args.drive2,
+                                      sigmas=tuple(s for s in sigmas if s > 0))
+            gp, info = multistart_grape_su4(U[i], cfg, device=dev)
+            tp = eval_pulse_tables(torch.as_tensor(gp, device=dev)[None].contiguous(),
+                                   packed[i:i + 1], sigmas, monte_carlo=args.monte_carlo,
+                                   epsilon_std=args.epsilon_std, system=system)
+            rows[g]["grape"] = [float(v) for v in tp[0]]
+            print(f"polished {g}: stages {[round(s['best_fid'], 4) for s in info['stages']]}")
 
     header = "| gate | " + " | ".join(f"E[F] σ={s:g}" for s in sigmas) + " |"
     lines = ["# Two-qubit named-gate evaluation", "",
@@ -232,6 +242,9 @@ def main(argv=None) -> dict:
              "", header, "|" + "---|" * (len(sigmas) + 1)]
     for g in names:
         lines.append("| " + g + " | " + " | ".join(f"{v:.4f}" for v in rows[g]["model"]) + " |")
+        if "grape" in rows[g]:
+            lines.append("| " + g + " (GRAPE) | "
+                         + " | ".join(f"{v:.4f}" for v in rows[g]["grape"]) + " |")
     text = "\n".join(lines)
     print(text)
     if args.out:
