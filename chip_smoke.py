@@ -71,8 +71,11 @@ Fifteen phases, each printing its own line with its seconds:
     the JAX package's CPU sweep;
 15. time: each kernel at the shape of each path that runs it, with CUDA
     events, beside its plain version, its bound and its ptxas registers,
-    spills and stack; one row of the ``kernels`` line per kernel and path,
-    with that path's launches.
+    spills and stack, and for the lane-group kernels B4, B6, B5 and B8 the
+    resident blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
+    exported by the libraries) and the launch's warps per warp scheduler;
+    one row of the ``kernels`` line per kernel and path, with that path's
+    launches (B4 and B5 at both the polish's and the training shape).
 
 Phases 6–7 are the single-qubit serving path, phase 8's CLI run the
 training path, phases 9–10 the two-qubit serving path, phase 11's CLI run
@@ -131,7 +134,8 @@ GRAD_RTOL = 1e-4  # as tests/test_pallas_kernel.py holds the JAX VJP kernel
 TRAIN_GRAD_TOL = 1e-4  # pallas vs xla, relative to the global gradient norm
 
 # SU(4), B4, B6 and B7, per (sample, segment) as counted in su4.cuh's
-# compose(), which forms only what the math needs: A = -iHτ/2⁴ is sparse
+# compose() (B7) and compose_lane() (B4, B6; the work every lane repeats taken
+# once), which form only what the math needs: A = -iHτ/2⁴ is sparse
 # (12 of its 32 reals are zero) and anti-Hermitian, A² and A⁴ Hermitian, A³
 # anti-Hermitian, so each is formed as an upper triangle from the products
 # that are not zero: 10 (A) + 37 (A², closed form) + 128 (A³ = A²A) + 166
@@ -142,7 +146,8 @@ SU4_FLOPS_PER_SEGMENT = 3661
 SU4_FLOPS_PER_SAMPLE = 10
 SU4_FLOPS_PER_SAMPLE_FIDELITY = 134
 # B5 per (sample, segment), counted the same way from su4.cuh's
-# reverse_sweep(): the segment rebuilt to T8(A) − I (973), the T8 adjoint
+# reverse_sweep_lane() (the lanes' shares summed, the work every lane repeats
+# taken once): the segment rebuilt to T8(A) − I (973), the T8 adjoint
 # (products with A⁴, Qᴴ, A², A: 3552), four squarings (2176) beside four
 # squaring adjoints (4224), U_k = I + X (4), the 20 entries of D = E·U_k that
 # the chain rule reads (316), the chain rule (57 / 58 / 65 at P = 2 / 3 / 4),
@@ -152,14 +157,16 @@ SU4_FLOPS_PER_SAMPLE_FIDELITY = 134
 # by tests/test_torch_su4_host.py.
 SU4_VJP_FLOPS_PER_SEGMENT = {2: 12264, 3: 12266, 4: 12274}
 SU4_VJP_FLOPS_PER_SAMPLE = 716
-# B8: B4's product (compose()) then B5's seed and sweep, per (sample,
+# B8: B4's product (compose_lane()) then B5's seed and sweep, per (sample,
 # segment) and per sample (held to the host build by the same test)
 SU4_B8_FLOPS_PER_SEGMENT = {P: SU4_FLOPS_PER_SEGMENT + f for P, f in
                             SU4_VJP_FLOPS_PER_SEGMENT.items()}
 SU4_B8_FLOPS_PER_SAMPLE = SU4_FLOPS_PER_SAMPLE + SU4_VJP_FLOPS_PER_SAMPLE
-# B8 against B5 seeded by B4 on the same inputs: the same compose() and the
-# same sweep, so the same numbers but for the compiler's choices
+# B8 against B5 seeded by B4 on the same inputs: the same compose_lane() and
+# the same sweep, so the same numbers but for the compiler's choices
 SU4_B8_B5_TOL = 1e-6
+# B4, B6, B5 and B8: a block is 4 warps (128 / lanes samples)
+SU4_WARPS_PER_BLOCK = 4
 # the JAX suite's tolerances for its Pallas SU(4) kernels (tests/test_su4_pallas.py:43,
 # :69, :121): products 2e-5, fidelities 1e-5 (2e-5 on drive2); at L = 100 widened to
 # twice the plain f32 version's own error against f64 where that is larger
@@ -1388,15 +1395,45 @@ def main() -> int:
                 "grape-su4": gq["launches"], "polish-su4": pq["launches"],
                 "serve-su4-variants": vq["launches"]}
 
+    lib4, lib4b = _build.load_library("su4"), _build.load_library("su4_bwd")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def occupancy(kid, shape):
+        """B4's, B6's, B5's and B8's lanes per sample at the row's shape (1:
+        one thread per sample), resident blocks per SM
+        (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the launch's
+        warps per warp scheduler (4 an SM)."""
+        B_, L_, P_, M_ = shape
+        if kid in ("B4", "B6"):
+            lanes = lib4.uqoc_su4_lanes(B_, M_)
+            per_sm = lib4.uqoc_su4_blocks_per_sm(B_, M_, P_, int(kid == "B4"), L_)
+            blocks = lib4.uqoc_su4_num_blocks(B_, M_)
+        else:
+            lanes = lib4b.uqoc_su4_vjp_lanes(B_, M_)
+            per_sm = lib4b.uqoc_su4_vjp_blocks_per_sm(B_, M_, P_, int(kid == "B8"), L_)
+            blocks = lib4b.uqoc_su4_vjp_num_blocks(B_, M_)
+        if per_sm < 1:
+            raise AssertionError(f"{kid}: occupancy query failed ({per_sm})")
+        return {"lanes_per_sample": lanes, "blocks_per_sm": per_sm,
+                "warps_per_scheduler": B_ * blocks * SU4_WARPS_PER_BLOCK / (4 * n_sm)}
+
     def row(kid, path, shape, err, ms, plain_ms, bound_):
         name, where, src = names[kid]
-        return {"name": name, "route": "cuda", "source": csrc + src,
-                "replaces": f"universal_quantum_optimal_control_tpu/{where}",
-                "launches": launches[path][kid], "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_[0], "bound_by": bound_[1],
-                "library_ms": None, "path": path,
-                "shape": "B={} L={} P={} M={}".format(*shape),
-                "ptxas": ptxas_of(ptx, entry[kid].format(shape[2]))}
+        fragment = entry[kid].format(shape[2])
+        occ = None
+        if kid in ("B4", "B5", "B6", "B8"):  # the instantiation at this shape's lanes
+            occ = occupancy(kid, shape)
+            fragment += f"Li{occ['lanes_per_sample']}E"
+        r = {"name": name, "route": "cuda", "source": csrc + src,
+             "replaces": f"universal_quantum_optimal_control_tpu/{where}",
+             "launches": launches[path][kid], "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_[0], "bound_by": bound_[1],
+             "library_ms": None, "path": path,
+             "shape": "B={} L={} P={} M={}".format(*shape),
+             "ptxas": ptxas_of(ptx, fragment)}
+        if occ:
+            r["occupancy"] = occ
+        return r
 
     def fid_row(path, p_, qt_, d_, e_, iters):
         B_, L_, P_ = p_.shape
@@ -1575,9 +1612,12 @@ def main() -> int:
                b6_row, b7_row, b4_row, b5_row, b6_train, b8_row, b7_grape, b4_pol, b5_pol,
                b6_pol, b6_var, b7_var]
     for k in kernels:
+        occ = k.get("occupancy")
         print(f"  {k['name']} [{k['path']}] {k['shape']}: {k['ms']:.4f} ms, plain "
               f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "
-              f"err {k['max_abs_err']:.2e}, launches {k['launches']}, ptxas {k['ptxas']}")
+              f"err {k['max_abs_err']:.2e}, launches {k['launches']}, ptxas {k['ptxas']}"
+              + (f", {occ['lanes_per_sample']} lanes a sample, {occ['blocks_per_sm']} blocks "
+                 f"per SM, {occ['warps_per_scheduler']:.2f} warps per scheduler" if occ else ""))
     print(f"  B1 [train] forward + backward {b1_train['fwd_bwd_ms']:.4f} ms, plain "
           f"{b1_train['fwd_bwd_plain_ms']:.3f} ms")
     print(f"  B4 + B5 [train-su4] forward + backward through mean_fidelity_su4_cuda "

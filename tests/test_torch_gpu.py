@@ -5,6 +5,10 @@ checks and their launch counters, B1's backward (B3 + B2) against autograd throu
 version, and the SU(4) mean fidelity's backward (B4 + B5) against autograd
 through its plain version.
 
+B4, B6, B5 and B8 run each sample on a group of four lanes; their cases
+include M = 4096 + 3, whose last block ends inside a group of samples, and
+two launches on the same inputs must agree bit for bit.
+
 This file imports nothing of JAX, so it also runs where JAX is absent:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
@@ -204,8 +208,9 @@ def su4_inputs(P, M, dev, B=3, L=7, seed=0):
     return pulses, tr, ti, d1, d2, ep, su4.TwoQubitSystem(drive2=P == 4)
 
 
+# ragged: no multiple of the block; 4096 + 3 ends inside a lane group's block
 @pytest.mark.parametrize("P", [2, 3, 4])
-@pytest.mark.parametrize("M", [1, 200])  # ragged: no multiple of the block
+@pytest.mark.parametrize("M", [1, 200, 4099])
 def test_su4_kernels_match_plain(card, P, M):
     pulses, tr, ti, d1, d2, ep, sys_ = su4_inputs(P, M, card)
     Ur, Ui = t4.propagate_su4_mc_cuda(pulses, d1, d2, ep, sys_)
@@ -257,8 +262,9 @@ def su4_gbar(B, dev):
     return torch.linspace(0.2, 1.8, B, device=dev)
 
 
+# 8449 samples for 3 targets fill an H100's schedulers: one thread a sample
 @pytest.mark.parametrize("P", [2, 3, 4])
-@pytest.mark.parametrize("M", [1, 200])  # ragged: no multiple of the block
+@pytest.mark.parametrize("M", [1, 200, 4099, 8449])  # ragged, as above
 def test_su4_training_kernels_match_plain(card, P, M):
     pulses, tr, ti, d1, d2, ep, sys_ = su4_inputs(P, M, card)
     F, prod = t4.mean_fidelity_su4_with_product_cuda(pulses, tr, ti, d1, d2, ep, sys_)
@@ -326,7 +332,8 @@ def test_su4_training_inputs_are_checked_not_converted(card):
     assert t4.su4_objective_vjp_from_product_cuda.launches == before
 
 
-@pytest.mark.parametrize("P,L,M", [(2, 3, 1), (3, 7, 200), (4, 7, 1000), (4, 24, 300)])
+@pytest.mark.parametrize("P,L,M", [(2, 3, 1), (3, 7, 200), (4, 7, 1000), (4, 24, 300),
+                                   (4, 7, 4099), (4, 7, 8449)])
 def test_b8_matches_plain_and_b5_seeded_by_b4(card, P, L, M):
     pulses, tr, ti, d1, d2, ep, sys_ = su4_inputs(P, M, card, L=L, seed=L)
     gbar = su4_gbar(3, card)
@@ -357,3 +364,36 @@ def test_b8_inputs_are_checked_not_converted(card):
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
         t4.su4_objective_vjp_cuda(pulses, tr, ti, d1, d2, ep, gbar.cpu(), sys_)
     assert t4.su4_objective_vjp_cuda.launches == before
+
+
+def test_su4_lane_group_kernels_are_deterministic(card):
+    """B4, B6, B5 and B8 sum over samples in a fixed order (group sums,
+    warp shuffles, block partials, double pass 2): two launches on the same
+    inputs give the same bits."""
+    pulses, tr, ti, d1, d2, ep, sys_ = su4_inputs(4, 4099, card)
+    gbar = su4_gbar(3, card)
+
+    def run():
+        F, prod = t4.mean_fidelity_su4_with_product_cuda(pulses, tr, ti, d1, d2, ep, sys_)
+        F6 = t4.mean_fidelity_su4_cuda(pulses, tr, ti, d1, d2, ep, sys_)
+        g5 = t4.su4_objective_vjp_from_product_cuda(pulses, tr, ti, d1, d2, ep, gbar, prod, sys_)
+        g8 = t4.su4_objective_vjp_cuda(pulses, tr, ti, d1, d2, ep, gbar, sys_)
+        return (F, prod, F6, *g5, *g8)
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_su4_launches_take_both_paths(card):
+    """B4, B6, B5 and B8 run one thread per sample where the launch gives
+    the card's warp schedulers at least 1.5 warps each, and a lane group per
+    sample where it would give fewer; the cases above cover both."""
+    from universal_quantum_optimal_control_tpu_torch.ops._build import load_library
+    fwd, bwd = load_library("su4"), load_library("su4_bwd")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    full = 3 * n_sm // 2 * 128  # samples of one target that fill the card
+    for lanes in (fwd.uqoc_su4_lanes, bwd.uqoc_su4_vjp_lanes):
+        assert lanes(3, 200) > 1 and lanes(3, 4099) > 1
+        assert lanes(1, full) == 1 and lanes(3, 8449) == 1

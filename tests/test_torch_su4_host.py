@@ -1,26 +1,37 @@
-"""PyTorch port, SU(4) kernels B4, B5, B6 and B7: their per-sample math,
-compiled for the host.
+"""PyTorch port, SU(4) kernels B4, B5, B6, B7 and B8: their per-sample
+math, compiled for the host.
 
-``ops/csrc/su4.cuh`` holds the per-sample math of every SU(4) kernel:
-``compose()`` (the L-segment product B4, B6 and B7 run per sample),
-``stage_row()`` (the per-segment scalars), and ``seed()`` with
-``reverse_sweep()`` (B5's per-sample reverse sweep).  They use nothing of
-CUDA but ``fmaf``, ``fmaxf`` and ``sincosf``, so a C++ compiler builds them
-for the CPU with the CUDA qualifiers defined away.  Two builds:
+``ops/csrc/su4.cuh`` holds the per-sample math of every SU(4) kernel, both
+ways a kernel runs a sample: one thread per sample (``compose()``,
+``seed()``, ``reverse_sweep()``: B7 always, B4, B6, B5 and B8 where a launch
+fills the card) and a lane group of G lanes per sample (``compose_lane()``,
+``product_rows_as_b4()``, ``seed_lane()``, ``reverse_sweep_lane()``: B4, B6, B5
+and B8 where it would not), with ``stage_row()`` (the per-segment scalars).
+They use nothing of CUDA but ``fmaf``, ``fmaxf``, ``sincosf`` and the group
+hook (``group_sync()``, ``group_sum()``, ``group_gather()``, ``ld4()`` /
+``st4()`` on the exchange area), so a C++ compiler builds them for the CPU
+with the CUDA qualifiers defined away and the hook defined here: the G
+lanes of a sample run as ``std::thread``s that meet at a ``std::barrier``
+(``g++ -std=c++20 -pthread``), a quarter warp's samples side by side (so
+every sample's swizzle of the exchange area is exercised), and every sample
+runs as in a kernel's block of 128 / G, those past M masked as the kernels
+mask them.  Two builds:
 
-* plain floats: the product against the port's plain version in f64, at
-  the JAX suite's product tolerance 2e-5 (``tests/test_su4_pallas.py``),
-  L ≤ 7; B5's sweep (summed over samples in double, as the kernel's two
-  passes do) against autograd through the plain version in f64, at the JAX
-  suite's gradient tolerance 1e-5 abs (``tests/test_su4_pallas_bwd.py``),
-  L ∈ {3, 7}, with a non-uniform per-target cotangent;
-* a float that counts its operations (an FMA counts 2, a negation 0): the
-  flops per segment and per sample must be the counts ``chip_smoke.py``
-  takes its B4/B6/B7, B5 and B8 bounds from.
-
-The sweep test's sample is B8's per-sample code as it stands in the kernel
-(``compose()``, ``seed()``, ``reverse_sweep()``), which is B5's seeded with
-B4's product.
+* plain floats: the product of one thread and of B4's lane groups against
+  the port's plain version in f64, at the JAX suite's product
+  tolerance 2e-5 (``tests/test_su4_pallas.py``), L ≤ 7, with B4's mean F at
+  the fidelity tolerance; B5's sweep seeded with B4's product, and B8's,
+  summed over samples in double as the kernels' two passes do, against
+  autograd through the plain version in f64, at the JAX suite's gradient
+  tolerance 1e-5 abs (``tests/test_su4_pallas_bwd.py``), L ∈ {3, 7}, with a
+  non-uniform per-target cotangent; the lane cases with M a multiple of the
+  block's samples and with a ragged tail;
+* a float that counts its operations (an FMA counts 2, a negation 0), per
+  lane and apart for work every lane repeats (marked ``Repeated``) and for
+  the group's sums: the flops of one sample in one thread, and the lanes'
+  shares with the repeated work taken once, must be the counts
+  ``chip_smoke.py`` takes its B4/B6/B7, B5 and B8 bounds from; the flops
+  the lanes execute are printed beside them.
 
 Skipped where no ``g++`` is on the PATH.
 """
@@ -39,32 +50,40 @@ from universal_quantum_optimal_control_tpu_torch.ops import propagate_su4 as tk
 
 HEADER = Path(tk.__file__).parent / "csrc" / "su4.cuh"
 PROD_TOL = 2e-5
+FID_TOL = {2: 1e-5, 3: 1e-5, 4: 2e-5}  # tests/test_su4_pallas.py (2e-5 on drive2)
 GRAD_TOL = 1e-5
 
 PRELUDE = r"""
+#include <barrier>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <functional>
 #include <initializer_list>
+#include <thread>
 #include <vector>
+// the class of the operation being counted: 0 split over the lanes, 1
+// repeated by every lane, 2 a sum over the group, 3 done again by a second
+// lane pair (B8's product)
+static thread_local int count_class = 0;
 #ifdef COUNT_FLOPS
-static long long nflops = 0;
+static thread_local long long nflops[4];
 struct CF {
   float v;
   constexpr CF() : v(0) {}
   constexpr CF(double x) : v(static_cast<float>(x)) {}
 };
-inline CF operator+(CF a, CF b) { ++nflops; return CF(a.v + b.v); }
-inline CF operator-(CF a, CF b) { ++nflops; return CF(a.v - b.v); }
-inline CF operator*(CF a, CF b) { ++nflops; return CF(a.v * b.v); }
+inline CF operator+(CF a, CF b) { ++nflops[count_class]; return CF(a.v + b.v); }
+inline CF operator-(CF a, CF b) { ++nflops[count_class]; return CF(a.v - b.v); }
+inline CF operator*(CF a, CF b) { ++nflops[count_class]; return CF(a.v * b.v); }
 inline CF operator-(CF a) { return CF(-a.v); }
 inline bool operator>(CF a, CF b) { return a.v > b.v; }
-inline CF fmaf(CF a, CF b, CF c) { nflops += 2; return CF(std::fma(a.v, b.v, c.v)); }
+inline CF fmaf(CF a, CF b, CF c) { nflops[count_class] += 2; return CF(std::fma(a.v, b.v, c.v)); }
 inline CF fmaxf(CF a, CF b) { return CF(std::fmax(a.v, b.v)); }
 inline void sincosf(CF x, CF* s, CF* c) { s->v = std::sin(x.v); c->v = std::cos(x.v); }
 // the sum over samples: one add per value
-inline double acc_add(double a, CF x) { ++nflops; return a + x.v; }
+inline double acc_add(double a, CF x) { ++nflops[count_class]; return a + x.v; }
 #define float CF
 #else
 inline double acc_add(double a, float x) { return a + x; }
@@ -75,34 +94,104 @@ inline double acc_add(double a, float x) { return a + x; }
 #define __restrict__
 struct Idx { int x; };
 static Idx threadIdx{0}, blockDim{1};
+
+// The group hook: the G lanes of a sample are threads; the lanes of all
+// samples run side by side (a quarter warp's: 8 / G samples) meet at one
+// barrier, as a warp's lanes meet at __syncwarp.  lane_c and lane_g are the
+// thread's lane in its group and its sample.
+static std::barrier<>* group_barrier = nullptr;
+static thread_local int lane_c = 0, lane_g = 0;
+static float group_bufs[8][4];
+inline void group_sync() { group_barrier->arrive_and_wait(); }
+// the card's butterfly: v + v^1, then + (v^2 + v^3)
+template <int G>
+inline float group_sum(float v) {
+  const int saved = count_class;
+  count_class = 2;
+  float* buf = group_bufs[lane_g];
+  for (int x = 1; x < G; x <<= 1) {
+    buf[lane_c] = v;
+    group_sync();
+    v = v + buf[lane_c ^ x];
+    group_sync();
+  }
+  count_class = saved;
+  return v;
+}
+template <int G>
+inline void group_gather(const float (&v)[4 / G], float (&out)[4]) {
+  float* buf = group_bufs[lane_g];
+  for (int j = 0; j < 4 / G; ++j) buf[lane_c * (4 / G) + j] = v[j];
+  group_sync();
+  for (int d = 0; d < 4; ++d) out[d] = buf[d];
+  group_sync();
+}
+inline void st4(float* p, const float (&v)[4]) { for (int i = 0; i < 4; ++i) p[i] = v[i]; }
+inline void ld4(const float* p, float (&v)[4]) { for (int i = 0; i < 4; ++i) v[i] = p[i]; }
+struct Repeated {
+  int saved;
+  Repeated() : saved(count_class) { count_class = saved == 0 ? 1 : saved; }
+  ~Repeated() { count_class = saved; }
+};
+struct Duplicate {
+  int saved;
+  explicit Duplicate(bool again) : saved(count_class) { count_class = again ? 3 : saved; }
+  ~Duplicate() { count_class = saved; }
+};
 """
 
 MAIN = r"""
 using namespace su4;
 
-// The kernel's per-segment sum over samples (WarpSink), in double.
+constexpr int kBlockThreads = 128;  // the kernels' threads per block
+
+// The kernels' per-segment sum over samples (WarpSink), in double: one
+// thread's values, or the group's first lane's.
 template <int P>
 struct HostSink {
   double* acc;
-  void operator()(int k, const float (&v)[P]) const {
+  void operator()(int k, const float (&v)[P], bool lead = true) const {
+    if (!lead) return;
     for (int p = 0; p < P; ++p) acc[k * P + p] = acc_add(acc[k * P + p], v[p]);
   }
 };
 
+// the exchange area of a quarter warp's samples: kSweepSlots slots of the
+// widest stride
+alignas(16) static float xch[kSweepSlots * slot_stride<2>];
+
+// fn(lane) on the G lanes of `samples` samples side by side, each lane a
+// thread, all meeting at one barrier; sample g's lanes as the kernels place
+// them (first column h 4 / G, swizzle g mod 8 / G).
+template <int G, class F>
+void run_lanes(F fn, int samples) {
+  std::barrier<> bar(G * samples);
+  group_barrier = &bar;
+  std::vector<std::thread> lanes;
+  for (int g = 0; g < samples; ++g)
+    for (int h = 0; h < G; ++h)
+      lanes.emplace_back([&fn, g, h] {
+        lane_c = h;
+        lane_g = g;
+        fn(Lane{xch + kSlotFloats * g, h * (4 / G), g & (8 / G - 1)});
+      });
+  for (auto& t : lanes) t.join();
+}
+
 #undef float
 #ifdef COUNT_FLOPS
-// flops at s = 4 for L = 1 and L = 2 (drive2 pulses): compose(), then
-// seed() and the P = 2, 3, 4 reverse sweeps
+// One thread per sample: flops at s = 4 for L = 1 and L = 2 (drive2
+// pulses) of compose(), then seed() and the P = 2, 3, 4 reverse sweeps
 template <int P>
 void count_sweep(CF* row, int L) {
   CF stash[64];
   std::vector<double> acc(L * P, 0.0);
   HostSink<P> sink{acc.data()};
   CF dd1 = 0.0, dd2 = 0.0, de = 0.0;
-  nflops = 0;
+  nflops[0] = 0;
   reverse_sweep<P>(row, L, CF(0.1), CF(-0.2), CF(0.03), CF(0.5), CF(0.1), 4, CF(1.0 / 16),
                    stash, 1, dd1, dd2, de, sink);
-  printf("%lld\n", nflops);
+  printf("%lld\n", nflops[0]);
 }
 
 // B8's sample: the product (compose()), the seed, then the same sweep
@@ -113,29 +202,105 @@ void count_rebuild(CF* row, int L) {
   std::vector<double> acc(L * P, 0.0);
   HostSink<P> sink{acc.data()};
   CF dd1 = 0.0, dd2 = 0.0, de = 0.0;
-  nflops = 0;
+  nflops[0] = 0;
   const Mat W = compose(row, L, CF(0.1), CF(-0.2), CF(0.03), CF(0.5), 4);
   stash_store(stash, 1, seed(W, t, t + 16, CF(0.01)));
   reverse_sweep<P>(row, L, CF(0.1), CF(-0.2), CF(0.03), CF(0.5), CF(0.1), 4, CF(1.0 / 16),
                    stash, 1, dd1, dd2, de, sink);
-  printf("%lld\n", nflops);
+  printf("%lld\n", nflops[0]);
 }
 
+// The lane group: flops of one sample over the lanes, "needed executed
+// alike", with the repeated work taken once in the first and by every lane
+// in the second; alike is 1 when every lane repeated the same count (among
+// the lanes that did the same work again beside another pair)
+template <int G, class F>
+void tally(F fn) {
+  long long lane[G][4] = {};
+  run_lanes<G>([&](const Lane& ln) {
+    for (auto& n : nflops) n = 0;
+    fn(ln);
+    for (int j = 0; j < 4; ++j) lane[ln.c / (4 / G)][j] = nflops[j];
+  }, 1);
+  long long split = 0, executed = 0;
+  int alike = 1;
+  for (int h = 0; h < G; ++h) {
+    split += lane[h][0];
+    executed += lane[h][0] + lane[h][1] + lane[h][2] + lane[h][3];
+    for (int o = 0; o < h; ++o)
+      if (lane[o][3] == lane[h][3]) alike &= lane[o][1] == lane[h][1];
+  }
+  printf("%lld %lld %d\n", split + lane[0][1], executed, alike);
+}
+
+const CF kT[32] = {0.0, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0, 1.1, 1.2, 1.3, 1.4, 1.5,
+                   1.6, 1.7, 1.8, 1.9, 2.0, 2.1, 2.2, 2.3, 2.4, 2.5, 2.6, 2.7, 2.8, 2.9, 3.0, 3.1};
+
+// B5's sample on its lane group (a product row, the seed, the sweep), or
+// B8's (rebuild: the product formed as B4 forms it first)
+template <int P>
+void count_lane_sweep(CF* row, int L, bool rebuild) {
+  constexpr int G = kSweepLanes;
+  std::vector<double> acc(L * P, 0.0);
+  tally<G>([&](const Lane& ln) {
+    HostSink<P> sink{acc.data()};
+    CF dd1 = 0.0, dd2 = 0.0, de = 0.0, pr[1][4], pi[1][4];
+    if (rebuild) {
+      product_rows_as_b4<4>(row, L, CF(0.1), CF(-0.2), CF(0.03), CF(0.5), 4, xch, 0, ln.c, pr,
+                            pi);
+      group_sync();
+    } else {
+      for (int k = 0; k < 4; ++k) {
+        pr[0][k] = CF(0.1 * (k + ln.c) - 0.2);
+        pi[0][k] = CF(0.05 * k * ln.c + 0.1);
+      }
+    }
+    Col V[1];
+    seed_lane<G>(pr, pi, kT, kT + 16, CF(0.01), ln, V);
+    reverse_sweep_lane<G, P>(row, L, CF(0.1), CF(-0.2), CF(0.03), CF(0.5), CF(0.1), 4,
+                             CF(1.0 / 16), ln, V, dd1, dd2, de, sink);
+  });
+}
+
+void count_lanes(const CF* pulses) {
+  for (int L = 1; L <= 2; ++L) {
+    CF row[12];
+    stage_row<4>(pulses, 0, L, CF(0.1), CF(1.0 / 16), row);
+    tally<kComposeLanes>([&](const Lane& ln) {
+      Col W[4 / kComposeLanes];
+      compose_lane<kComposeLanes>(row, L, CF(0.1), CF(-0.2), CF(0.03), CF(0.5), 4, ln, W);
+    });
+  }
+  for (int rebuild = 0; rebuild < 2; ++rebuild)
+    for (int L = 1; L <= 2; ++L) {
+      CF row[20];
+      stage_row<4, true>(pulses, 0, L, CF(0.1), CF(1.0 / 16), row);
+      count_lane_sweep<2>(row, L, rebuild);
+      count_lane_sweep<3>(row, L, rebuild);
+      count_lane_sweep<4>(row, L, rebuild);
+    }
+}
+
+// Lines, one thread per sample (one count each): compose() at L = 1, 2;
+// seed(); the sweep at P = 2, 3, 4 for L = 1, then L = 2; B8's sample
+// likewise.  Then the lane groups ("needed executed alike" each): B4's
+// compose_lane() at L = 1, 2; B5 at P = 2, 3, 4 for L = 1, then L = 2; B8
+// likewise.
 int main() {
   CF pulses[8] = {0.3, -0.2, 0.7, 0.1, 1.2, 0.4, 0.6, 0.2};
   for (int L = 1; L <= 2; ++L) {
     CF row[12];
     stage_row<4>(pulses, 0, L, CF(0.1), CF(1.0 / 16), row);
-    nflops = 0;
+    nflops[0] = 0;
     compose(row, L, CF(0.1), CF(-0.2), CF(0.03), CF(0.5), 4);
-    printf("%lld\n", nflops);
+    printf("%lld\n", nflops[0]);
   }
   Mat W = identity();
   CF t[32];
   for (int e = 0; e < 32; ++e) t[e] = CF(0.1 * e);
-  nflops = 0;
+  nflops[0] = 0;
   seed(W, t, t + 16, CF(0.01));
-  printf("%lld\n", nflops);
+  printf("%lld\n", nflops[0]);
   for (int L = 1; L <= 2; ++L) {
     CF row[20];
     stage_row<4, true>(pulses, 0, L, CF(0.1), CF(1.0 / 16), row);
@@ -150,35 +315,152 @@ int main() {
     count_rebuild<3>(row, L);
     count_rebuild<4>(row, L);
   }
+  count_lanes(pulses);
 }
 #else
-// stdin: mode B L P M xtalk coupling scaling, pulses (B L P), d1, d2, eps
-// (B M), and for mode 1 the targets' re and im (B 16 each) and gbar (B).
-// stdout, mode 0: per sample the 16 entries of W, re and im; mode 1:
-// dpulses (B L P), then dd1, dd2, deps (B M).
+// One target's samples as the kernels run them: in one thread each, or in
+// blocks of 128 / G samples on lane groups, those past M with zero disorder
+// (and, in the sweep, a zero seed), a quarter warp's samples side by side.
+struct Target {
+  int L, scaling;
+  long M;
+  float xt, J, ts;
+  std::vector<float> row6, row10;
+  const float *d1, *d2, *ep;
+};
+
 template <int P>
-void sweep_target(const std::vector<float>& pulses, int b, int L, long M, float xt,
-                  float J, int scaling, const float* d1, const float* d2,
-                  const float* ep, const float* t, float gbar, std::vector<double>& acc,
+Target stage(const std::vector<float>& pulses, int b, int L, long M, float xt, float J,
+             int scaling, const float* d1, const float* d2, const float* ep) {
+  Target t{L, scaling, M, xt, J, std::ldexp(1.0f, -scaling), std::vector<float>(6 * L),
+           std::vector<float>(10 * L), d1, d2, ep};
+  stage_row<P>(pulses.data(), b, L, xt, t.ts, t.row6.data());
+  stage_row<P, true>(pulses.data(), b, L, xt, t.ts, t.row10.data());
+  return t;
+}
+
+template <int G>
+long padded(long M) {
+  constexpr long S = kBlockThreads / G;
+  return (M + S - 1) / S * S;
+}
+
+// B4 on one target on lane groups: each lane's columns of each active
+// sample's product into prod (32, M), 16 re then 16 im, row-major, as the
+// kernel writes them; the return value is the sum of F over the samples.
+template <int G>
+double b4_target(const Target& t, const float* tr, const float* ti, float* prod) {
+  constexpr int NC = 4 / G, S = 8 / G;
+  double fsum[S] = {};
+  run_lanes<G>([&](const Lane& ln) {
+    const int c = ln.c, g = lane_g;
+    for (long m = g; m < padded<G>(t.M); m += S) {
+      const bool active = m < t.M;
+      Col W[NC];
+      compose_lane<G>(t.row6.data(), t.L, active ? t.d1[m] : 0.0f, active ? t.d2[m] : 0.0f,
+                      active ? t.ep[m] : 0.0f, t.J, t.scaling, ln, W);
+      float re = 0.0f, im = 0.0f;
+      for (int j = 0; j < NC; ++j)
+        for (int r = 0; r < 4; ++r) {
+          const int e = (4 * r + j) ^ (5 * c);
+          if (active) {
+            prod[e * t.M + m] = W[j].re[r];
+            prod[(16 + e) * t.M + m] = W[j].im[r];
+          }
+          re = fmaf(W[j].re[r], tr[e], re);
+          re = fmaf(W[j].im[r], ti[e], re);
+          im = fmaf(W[j].re[r], ti[e], im);
+          im = fmaf(-W[j].im[r], tr[e], im);
+        }
+      re = group_sum<G>(re);
+      im = group_sum<G>(im);
+      if (active && c == 0) fsum[g] += (fmaf(re, re, im * im) + 4.0f) / 20.0f;
+    }
+  }, S);
+  double f = 0.0;
+  for (double x : fsum) f += x;
+  return f;
+}
+
+// B5 (prod given: B4's) or B8 (prod null) on one target on their lane
+// groups: the sum of the pulse cotangents over samples into acc (L P),
+// per-sample ones into per_sample (3, M).
+template <int P>
+void sweep_target(const Target& t, const float* target, float gbar, const float* prod,
+                  std::vector<double>& acc, std::vector<float>& per_sample) {
+  constexpr int G = kSweepLanes, S = 8 / G;
+  std::vector<std::vector<double>> accs(S, acc);
+  run_lanes<G>([&](const Lane& ln) {
+    const int c = ln.c, g = lane_g;
+    HostSink<P> sink{accs[g].data()};
+    for (long m = g; m < padded<G>(t.M); m += S) {
+      const bool active = m < t.M;
+      const float d1 = active ? t.d1[m] : 0.0f, d2 = active ? t.d2[m] : 0.0f;
+      const float ep = active ? t.ep[m] : 0.0f;
+      float pr[1][4], pi[1][4];
+      if (prod == nullptr) {
+        product_rows_as_b4<4>(t.row10.data(), t.L, d1, d2, ep, t.J, t.scaling, xch, g, c, pr,
+                              pi);
+        group_sync();
+      } else {
+        for (int k = 0; k < 4; ++k) {
+          const int e = k ^ (5 * c);
+          pr[0][k] = active ? prod[e * t.M + m] : 0.0f;
+          pi[0][k] = active ? prod[(16 + e) * t.M + m] : 0.0f;
+        }
+      }
+      const float gs = active ? gbar * (1.0f / static_cast<float>(t.M)) * 0.1f : 0.0f;
+      Col V[1];
+      seed_lane<G>(pr, pi, target, target + 16, gs, ln, V);
+      float dd1 = 0.0f, dd2 = 0.0f, de = 0.0f;
+      reverse_sweep_lane<G, P>(t.row10.data(), t.L, d1, d2, ep, t.J, t.xt, t.scaling, t.ts, ln,
+                               V, dd1, dd2, de, sink);
+      if (active && c == 0) {
+        per_sample[m] = dd1;
+        per_sample[t.M + m] = dd2;
+        per_sample[2 * t.M + m] = de;
+      }
+    }
+  }, S);
+  for (size_t j = 0; j < acc.size(); ++j)
+    for (int g = 0; g < S; ++g) acc[j] += accs[g][j];
+}
+
+// B8's sample in one thread: compose(), seed(), reverse_sweep().
+template <int P>
+void sweep_thread(const Target& t, const float* target, float gbar, std::vector<double>& acc,
                   std::vector<float>& per_sample) {
-  const float ts = std::ldexp(1.0f, -scaling);
-  std::vector<float> row(6 * L), row10(10 * L);
-  stage_row<P>(pulses.data(), b, L, xt, ts, row.data());
-  stage_row<P, true>(pulses.data(), b, L, xt, ts, row10.data());
   HostSink<P> sink{acc.data()};
-  for (long m = 0; m < M; ++m) {
-    const Mat W = compose(row.data(), L, d1[m], d2[m], ep[m], J, scaling);
+  for (long m = 0; m < t.M; ++m) {
+    const Mat W = compose(t.row6.data(), t.L, t.d1[m], t.d2[m], t.ep[m], t.J, t.scaling);
     float stash[64];
-    stash_store(stash, 1, seed(W, t, t + 16, gbar * (1.0f / static_cast<float>(M)) * 0.1f));
+    stash_store(stash, 1, seed(W, target, target + 16,
+                               gbar * (1.0f / static_cast<float>(t.M)) * 0.1f));
     float dd1 = 0.0f, dd2 = 0.0f, de = 0.0f;
-    reverse_sweep<P>(row10.data(), L, d1[m], d2[m], ep[m], J, xt, scaling, ts, stash, 1,
-                     dd1, dd2, de, sink);
+    reverse_sweep<P>(t.row10.data(), t.L, t.d1[m], t.d2[m], t.ep[m], t.J, t.xt, t.scaling, t.ts,
+                     stash, 1, dd1, dd2, de, sink);
     per_sample[m] = dd1;
-    per_sample[M + m] = dd2;
-    per_sample[2 * M + m] = de;
+    per_sample[t.M + m] = dd2;
+    per_sample[2 * t.M + m] = de;
   }
 }
 
+template <int P>
+void sweep(int mode, const Target& t, const float* target, float gbar, const float* prod,
+           std::vector<double>& acc, std::vector<float>& ps) {
+  if (mode == 4)
+    sweep_thread<P>(t, target, gbar, acc, ps);
+  else
+    sweep_target<P>(t, target, gbar, prod, acc, ps);
+}
+
+// stdin: mode B L P M xtalk coupling scaling, pulses (B L P), d1, d2, eps
+// (B M), and for modes 1-4 the targets' re and im (B 16 each) and gbar (B).
+// stdout, mode 0 (compose(), one thread a sample): per sample the 16
+// entries of W, re and im; mode 2 (B4 on its lane groups): the same, then
+// the B mean F; mode 1 (B5 on its lane groups, seeded with mode 2's
+// product), mode 3 (B8 on its lane groups) and mode 4 (B8's sample in one
+// thread): dpulses (B L P), then dd1, dd2, deps (B M).
 int main() {
   int mode, B, L, P, scaling;
   long M;
@@ -190,19 +472,43 @@ int main() {
   for (auto* v : {&pulses, &d1, &d2, &ep, &t, &gbar})
     for (auto& x : *v)
       if (scanf("%f", &x) != 1) return 1;
+  std::vector<Target> targets;
+  for (int b = 0; b < B; ++b) {
+    const long o = b * M;
+    if (P == 2) targets.push_back(stage<2>(pulses, b, L, M, xt, J, scaling, &d1[o], &d2[o], &ep[o]));
+    if (P == 3) targets.push_back(stage<3>(pulses, b, L, M, xt, J, scaling, &d1[o], &d2[o], &ep[o]));
+    if (P == 4) targets.push_back(stage<4>(pulses, b, L, M, xt, J, scaling, &d1[o], &d2[o], &ep[o]));
+  }
   if (mode == 0) {
-    std::vector<float> row(6 * L);
-    for (int b = 0; b < B; ++b) {
-      const float ts = std::ldexp(1.0f, -scaling);
-      if (P == 2) stage_row<2>(pulses.data(), b, L, xt, ts, row.data());
-      if (P == 3) stage_row<3>(pulses.data(), b, L, xt, ts, row.data());
-      if (P == 4) stage_row<4>(pulses.data(), b, L, xt, ts, row.data());
+    for (int b = 0; b < B; ++b)
       for (long m = 0; m < M; ++m) {
         const long i = b * M + m;
-        const Mat W = compose(row.data(), L, d1[i], d2[i], ep[i], J, scaling);
+        const Mat W = compose(targets[b].row6.data(), L, d1[i], d2[i], ep[i], J, scaling);
         for (int e = 0; e < 16; ++e) printf("%.9g %.9g\n", W.re[e], W.im[e]);
       }
+    return 0;
+  }
+  // targets: B re rows of 16, then B im rows of 16
+  std::vector<std::vector<float>> tgt(B, std::vector<float>(32));
+  for (int b = 0; b < B; ++b) {
+    std::memcpy(tgt[b].data(), &t[16 * b], 16 * sizeof(float));
+    std::memcpy(tgt[b].data() + 16, &t[16 * (B + b)], 16 * sizeof(float));
+  }
+  std::vector<std::vector<float>> prods;
+  std::vector<double> means;
+  if (mode == 1 || mode == 2)
+    for (int b = 0; b < B; ++b) {
+      prods.emplace_back(32 * M);
+      const float *tr = tgt[b].data(), *ti = tr + 16;
+      const double f = b4_target<kComposeLanes>(targets[b], tr, ti, prods[b].data());
+      means.push_back(f / M);
     }
+  if (mode == 2) {
+    for (int b = 0; b < B; ++b)
+      for (long m = 0; m < M; ++m)
+        for (int e = 0; e < 16; ++e)
+          printf("%.9g %.9g\n", prods[b][e * M + m], prods[b][(16 + e) * M + m]);
+    for (double f : means) printf("%.9g\n", f);
     return 0;
   }
   std::vector<double> dpulses;
@@ -210,20 +516,10 @@ int main() {
   for (int b = 0; b < B; ++b) {
     std::vector<double> acc(L * P, 0.0);
     std::vector<float> ps(3 * M);
-    // targets: B re rows of 16, then B im rows of 16
-    std::vector<float> tb(32);
-    std::memcpy(tb.data(), &t[16 * b], 16 * sizeof(float));
-    std::memcpy(tb.data() + 16, &t[16 * (B + b)], 16 * sizeof(float));
-    const long o = b * M;
-    if (P == 2)
-      sweep_target<2>(pulses, b, L, M, xt, J, scaling, &d1[o], &d2[o], &ep[o], tb.data(),
-                      gbar[b], acc, ps);
-    if (P == 3)
-      sweep_target<3>(pulses, b, L, M, xt, J, scaling, &d1[o], &d2[o], &ep[o], tb.data(),
-                      gbar[b], acc, ps);
-    if (P == 4)
-      sweep_target<4>(pulses, b, L, M, xt, J, scaling, &d1[o], &d2[o], &ep[o], tb.data(),
-                      gbar[b], acc, ps);
+    const float* prod = mode == 1 ? prods[b].data() : nullptr;
+    if (P == 2) sweep<2>(mode, targets[b], tgt[b].data(), gbar[b], prod, acc, ps);
+    if (P == 3) sweep<3>(mode, targets[b], tgt[b].data(), gbar[b], prod, acc, ps);
+    if (P == 4) sweep<4>(mode, targets[b], tgt[b].data(), gbar[b], prod, acc, ps);
     dpulses.insert(dpulses.end(), acc.begin(), acc.end());
     for (int c = 0; c < 3; ++c)
       std::memcpy(&per_sample[(c * B + b) * M], &ps[c * M], M * sizeof(float));
@@ -247,7 +543,7 @@ def host_builds(tmp_path_factory):
     exes = {}
     for name, flags in (("math", []), ("count", ["-DCOUNT_FLOPS"])):
         exes[name] = out / name
-        subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off",
+        subprocess.run(["g++", "-std=c++20", "-pthread", "-O1", "-ffp-contract=off",
                         "-Wno-unknown-pragmas", *flags, "-o", str(exes[name]), str(cpp)],
                        check=True, capture_output=True, text=True)
     return exes
@@ -267,6 +563,14 @@ def pulse_case(P, B, L, M, seed):
     return rng, pulses, d1, d2, ep
 
 
+def targets_case(rng, B):
+    """Random unitary targets (re, im) and a non-uniform per-target ḡ."""
+    z = rng.standard_normal((B, 4, 4)) + 1j * rng.standard_normal((B, 4, 4))
+    T = np.linalg.qr(z)[0]
+    return T.real.astype(np.float32), T.imag.astype(np.float32), \
+        np.linspace(0.3, 1.7, B).astype(np.float32)
+
+
 def run_host(exe, *header, arrays):
     flat = np.concatenate([np.asarray(a, np.float32).ravel() for a in arrays])
     stdin = " ".join(str(h) for h in header) + "\n" + " ".join(f"{x:.9g}" for x in flat)
@@ -275,72 +579,162 @@ def run_host(exe, *header, arrays):
     return np.array(out.split(), dtype=np.float64)
 
 
+def plain_system(P, xt, J, s):
+    return tsu4.TwoQubitSystem(xtalk=xt, coupling=J, drive2=P == 4, expm_scaling=s)
+
+
 @pytest.mark.parametrize("P", [2, 3, 4])
 def test_compose_math_on_the_host(host_builds, P):
+    """``compose()``, one thread per sample (B7, and B4 and B6 on launches
+    that fill the card)."""
     B, L, M, xt, J, s = 2, 7, 24, 0.1, 0.5, 4
     _, pulses, d1, d2, ep = pulse_case(P, B, L, M, 40 + P)
     W = run_host(host_builds["math"], 0, B, L, P, M, xt, J, s,
                  arrays=(pulses, d1, d2, ep)).reshape(B, M, 4, 4, 2)
-    system = tsu4.TwoQubitSystem(xtalk=xt, coupling=J, drive2=P == 4, expm_scaling=s)
     Ur, Ui = tsu4.propagate_su4_mc(*(torch.from_numpy(a).double() for a in (pulses, d1, d2, ep)),
-                                   system)
+                                   plain_system(P, xt, J, s))
     np.testing.assert_allclose(W[..., 0], Ur.numpy(), atol=PROD_TOL, rtol=0)
     np.testing.assert_allclose(W[..., 1], Ui.numpy(), atol=PROD_TOL, rtol=0)
 
 
-@pytest.mark.parametrize("P,L", [(2, 3), (3, 7), (4, 7)])
-def test_reverse_sweep_math_on_the_host(host_builds, P, L):
-    """B5's per-sample sweep, seeded with B4's product (``compose()``) and a
-    non-uniform per-target cotangent, against autograd through the plain
-    version in f64."""
-    B, M, xt, J, s = 2, 40, 0.1, 0.5, 4
-    rng, pulses, d1, d2, ep = pulse_case(P, B, L, M, 60 + P)
-    z = rng.standard_normal((B, 4, 4)) + 1j * rng.standard_normal((B, 4, 4))
-    T = np.linalg.qr(z)[0]
-    tr, ti = T.real.astype(np.float32), T.imag.astype(np.float32)
-    gbar = np.array([0.3, 1.7], np.float32)
-    out = run_host(host_builds["math"], 1, B, L, P, M, xt, J, s,
+# M = 128 fills whole kernel blocks on lane groups (64 samples on B4's 2
+# lanes, 32 on B5's 4), 45 leaves a ragged block whose samples past M are
+# masked
+@pytest.mark.parametrize("P,M", [(2, 128), (3, 128), (4, 128), (4, 45)])
+def test_lane_compose_math_on_the_host(host_builds, P, M):
+    """B4's lane groups (``compose_lane()``): each sample's product as the
+    kernel writes it, and the per-target mean F."""
+    B, L, xt, J, s = 2, 7, 0.1, 0.5, 4
+    rng, pulses, d1, d2, ep = pulse_case(P, B, L, M, 50 + P)
+    tr, ti, gbar = targets_case(rng, B)
+    out = run_host(host_builds["math"], 2, B, L, P, M, xt, J, s,
                    arrays=(pulses, d1, d2, ep, tr, ti, gbar))
-    dpulses = out[:B * L * P].reshape(B, L, P)
-    dd1, dd2, de = out[B * L * P:].reshape(3, B, M)
-    system = tsu4.TwoQubitSystem(xtalk=xt, coupling=J, drive2=P == 4, expm_scaling=s)
+    W, F = out[:-B].reshape(B, M, 4, 4, 2), out[-B:]
+    args = [torch.from_numpy(a).double() for a in (pulses, tr, ti, d1, d2, ep)]
+    F_ref, prod_ref = tk.mean_fidelity_su4_with_product_plain(*args, plain_system(P, xt, J, s))
+    ref = prod_ref.numpy().transpose(0, 2, 1).reshape(B, M, 2, 4, 4)
+    np.testing.assert_allclose(W[..., 0], ref[:, :, 0], atol=PROD_TOL, rtol=0)
+    np.testing.assert_allclose(W[..., 1], ref[:, :, 1], atol=PROD_TOL, rtol=0)
+    np.testing.assert_allclose(F, F_ref.numpy(), atol=FID_TOL[P], rtol=0)
+
+
+def sweep_case(host_builds, mode, P, L, M, seed):
+    """Run B5 on its lane groups (mode 1), B8 on its lane groups (mode 3) or
+    B8's sample in one thread (mode 4) on the host; returns its gradients
+    and autograd's through the plain version in f64."""
+    B, xt, J, s = 2, 0.1, 0.5, 4
+    rng, pulses, d1, d2, ep = pulse_case(P, B, L, M, seed)
+    tr, ti, gbar = targets_case(rng, B)
+    out = run_host(host_builds["math"], mode, B, L, P, M, xt, J, s,
+                   arrays=(pulses, d1, d2, ep, tr, ti, gbar))
+    got = (out[:B * L * P].reshape(B, L, P), *out[B * L * P:].reshape(3, B, M))
     want = tk.su4_objective_vjp_from_product_plain(
         *(torch.from_numpy(a).double() for a in (pulses, tr, ti, d1, d2, ep, gbar)), None,
-        system)
-    for name, got, ref in zip(("pulses", "delta1", "delta2", "eps"), (dpulses, dd1, dd2, de),
-                              want):
-        np.testing.assert_allclose(got, ref.numpy(), atol=GRAD_TOL, rtol=0, err_msg=name)
-    assert np.abs(dpulses).max() > 1e-3 and np.abs(dd1).max() > 1e-6  # not vacuous
+        plain_system(P, xt, J, s))
+    return got, want
+
+
+def assert_grads(got, want):
+    for name, g, ref in zip(("pulses", "delta1", "delta2", "eps"), got, want):
+        np.testing.assert_allclose(g, ref.numpy(), atol=GRAD_TOL, rtol=0, err_msg=name)
+    assert np.abs(got[0]).max() > 1e-3 and np.abs(got[1]).max() > 1e-6  # not vacuous
+
+
+@pytest.mark.parametrize("P,L", [(2, 3), (3, 7), (4, 7)])
+def test_reverse_sweep_math_on_the_host(host_builds, P, L):
+    """B5's per-sample sweep in one thread, seeded with B4's product
+    (``compose()``, then ``seed()``, ``reverse_sweep()``: B8's per-sample
+    code, which is B5's seeded with B4's product) and a non-uniform
+    per-target cotangent, against autograd through the plain version in
+    f64."""
+    assert_grads(*sweep_case(host_builds, 4, P, L, 40, 60 + P))
+
+
+@pytest.mark.parametrize("P,L,M", [(2, 3, 128), (3, 7, 128), (4, 7, 128), (4, 7, 45)])
+def test_lane_reverse_sweep_math_on_the_host(host_builds, P, L, M):
+    """B5's lane groups (``seed_lane()``, ``reverse_sweep_lane()``), seeded
+    with B4's lane-group product and a non-uniform per-target cotangent,
+    against autograd through the plain version in f64."""
+    assert_grads(*sweep_case(host_builds, 1, P, L, M, 60 + P))
+
+
+@pytest.mark.parametrize("P,L,M", [(2, 3, 128), (4, 7, 45)])
+def test_lane_rebuild_sweep_math_on_the_host(host_builds, P, L, M):
+    """B8's lane groups (the product formed as B4's lane groups form it,
+    ``product_rows_as_b4()``, then B5's seed and sweep) against autograd in
+    f64, and equal to B5 seeded with B4's product, value for value."""
+    got, want = sweep_case(host_builds, 3, P, L, M, 70 + P)
+    b5, _ = sweep_case(host_builds, 1, P, L, M, 70 + P)
+    assert_grads(got, want)
+    for name, g, g5 in zip(("pulses", "delta1", "delta2", "eps"), got, b5):
+        np.testing.assert_array_equal(g, g5, err_msg=name)
+
+
+def host_counts(host_builds):
+    """The count build: one thread per sample (compose() at L = 1, 2;
+    seed(); the sweep at P = 2, 3, 4 for L = 1 then 2; B8's sample likewise),
+    then the lane groups' (needed, executed, repeated work alike in every
+    lane) per case (B4 at L = 1, 2; B5 at P = 2, 3, 4 for L = 1 then 2; B8
+    likewise)."""
+    lines = subprocess.run([str(host_builds["count"])], capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    thread = [int(x) for x in lines[:15]]
+    rows = [tuple(int(x) for x in line.split()) for line in lines[15:]]
+    assert len(rows) == 14 and all(r[2] == 1 for r in rows), \
+        "the repeated work differs between lanes"
+    return thread, rows
 
 
 def test_compose_flops_on_the_host_are_the_bound_counts(host_builds):
-    one, two = (int(v) for v in subprocess.run(
-        [str(host_builds["count"])], capture_output=True, text=True,
-        check=True).stdout.split()[:2])
+    """``compose()`` (one thread per sample: B7, and B4 and B6 on launches
+    that fill the card) per segment and per sample."""
+    thread, lanes = host_counts(host_builds)
+    one, two = thread[:2]
     assert two - one == chip_smoke.SU4_FLOPS_PER_SEGMENT
     assert one - chip_smoke.SU4_FLOPS_PER_SEGMENT == chip_smoke.SU4_FLOPS_PER_SAMPLE
+    (_, x1, _), (_, x2, _) = lanes[0], lanes[1]
+    print(f"B4 on lane groups: {x2 - x1} flops executed per sample-segment (bound "
+          f"{two - one}), {x1 - (x2 - x1)} per sample")
 
 
 def test_reverse_sweep_flops_on_the_host_are_the_bound_counts(host_builds):
     """B5 per segment (the sweep and one add per channel for the sum over
     samples) and per sample (the energies, (1 + ε)/2 and the seed)."""
-    counts = [int(v) for v in subprocess.run(
-        [str(host_builds["count"])], capture_output=True, text=True,
-        check=True).stdout.split()[2:]]
-    seed, one, two = counts[0], counts[1:4], counts[4:7]
+    thread, lanes = host_counts(host_builds)
+    seed, one, two = thread[2], thread[3:6], thread[6:9]
     for P, c1, c2 in zip((2, 3, 4), one, two):
         assert c2 - c1 == chip_smoke.SU4_VJP_FLOPS_PER_SEGMENT[P], P
         assert seed + c1 - (c2 - c1) == chip_smoke.SU4_VJP_FLOPS_PER_SAMPLE, P
+    for P, (_, x1, _), (_, x2, _) in zip((2, 3, 4), lanes[2:5], lanes[5:8]):
+        print(f"B5 on lane groups, P = {P}: {x2 - x1} flops executed per sample-segment "
+              f"(bound {chip_smoke.SU4_VJP_FLOPS_PER_SEGMENT[P]}), {x1 - (x2 - x1)} per sample")
 
 
 def test_rebuild_sweep_flops_on_the_host_are_the_bound_counts(host_builds):
     """B8 per segment (the product's segment and B5's) and per sample (the
     product's energies and (1 + ε)/2, then B5's per-sample work)."""
-    counts = [int(v) for v in subprocess.run(
-        [str(host_builds["count"])], capture_output=True, text=True,
-        check=True).stdout.split()[9:]]
-    one, two = counts[0:3], counts[3:6]
+    thread, lanes = host_counts(host_builds)
+    one, two = thread[9:12], thread[12:15]
     for P, c1, c2 in zip((2, 3, 4), one, two):
         assert c2 - c1 == chip_smoke.SU4_B8_FLOPS_PER_SEGMENT[P] \
             == chip_smoke.SU4_FLOPS_PER_SEGMENT + chip_smoke.SU4_VJP_FLOPS_PER_SEGMENT[P], P
         assert c1 - (c2 - c1) == chip_smoke.SU4_B8_FLOPS_PER_SAMPLE, P
+    for P, (_, x1, _), (_, x2, _) in zip((2, 3, 4), lanes[8:11], lanes[11:14]):
+        print(f"B8 on lane groups, P = {P}: {x2 - x1} flops executed per sample-segment "
+              f"(bound {chip_smoke.SU4_B8_FLOPS_PER_SEGMENT[P]}), {x1 - (x2 - x1)} per sample")
+
+
+def test_lane_flops_on_the_host_are_the_bound_counts(host_builds):
+    """The lane groups' B4, B5 and B8: the lanes' shares summed and the work
+    every lane repeats taken once are the bound's counts, per segment and per
+    sample."""
+    _, r = host_counts(host_builds)
+    (n1, _, _), (n2, _, _) = r[0], r[1]
+    assert n2 - n1 == chip_smoke.SU4_FLOPS_PER_SEGMENT
+    assert n1 - (n2 - n1) == chip_smoke.SU4_FLOPS_PER_SAMPLE
+    for P, (n1, _, _), (n2, _, _) in zip((2, 3, 4), r[2:5], r[5:8]):
+        assert n2 - n1 == chip_smoke.SU4_VJP_FLOPS_PER_SEGMENT[P], P
+        assert n1 - (n2 - n1) == chip_smoke.SU4_VJP_FLOPS_PER_SAMPLE, P
+    for P, (n1, _, _), (n2, _, _) in zip((2, 3, 4), r[8:11], r[11:14]):
+        assert n2 - n1 == chip_smoke.SU4_B8_FLOPS_PER_SEGMENT[P], P
+        assert n1 - (n2 - n1) == chip_smoke.SU4_B8_FLOPS_PER_SAMPLE, P

@@ -119,8 +119,12 @@ def _declare_su2(lib: ctypes.CDLL) -> None:
 
 def _declare_su4(lib: ctypes.CDLL) -> None:
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-    lib.uqoc_su4_num_blocks.argtypes = [i64]
+    lib.uqoc_su4_num_blocks.argtypes = [i32, i64]
     lib.uqoc_su4_num_blocks.restype = i32
+    lib.uqoc_su4_lanes.argtypes = [i32, i64]
+    lib.uqoc_su4_lanes.restype = i32
+    lib.uqoc_su4_blocks_per_sm.argtypes = [i32, i64, i32, i32, i32]
+    lib.uqoc_su4_blocks_per_sm.restype = i32
     lib.uqoc_su4_propagate_mc.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i64, f32, f32, i32, ptr]
     lib.uqoc_su4_propagate_mc.restype = i32
@@ -134,8 +138,12 @@ def _declare_su4(lib: ctypes.CDLL) -> None:
 
 def _declare_su4_bwd(lib: ctypes.CDLL) -> None:
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-    lib.uqoc_su4_vjp_num_blocks.argtypes = [i64]
+    lib.uqoc_su4_vjp_num_blocks.argtypes = [i32, i64]
     lib.uqoc_su4_vjp_num_blocks.restype = i32
+    lib.uqoc_su4_vjp_lanes.argtypes = [i32, i64]
+    lib.uqoc_su4_vjp_lanes.restype = i32
+    lib.uqoc_su4_vjp_blocks_per_sm.argtypes = [i32, i64, i32, i32, i32]
+    lib.uqoc_su4_vjp_blocks_per_sm.restype = i32
     lib.uqoc_su4_objective_vjp.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
         i32, i32, i32, i64, f32, f32, i32, ptr]

@@ -28,6 +28,37 @@ extern "C" const char* uqoc_error_string(int err) {
 
 namespace uqoc {
 
+// The streaming multiprocessors of the current device, 0 where it cannot be
+// read; read once per device (it does not change), since every launch asks.
+inline int sm_count() {
+  static int known[64] = {};
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) {
+    cudaGetLastError();  // clear it, so no later launch reports it
+    return 0;
+  }
+  if (dev >= 0 && dev < 64 && known[dev] > 0) return known[dev];
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  if (dev >= 0 && dev < 64) known[dev] = n;
+  return n;
+}
+
+// The SU(4) kernels B4, B6, B5 and B8 run one thread per sample where a
+// launch of `blocks` blocks of 4 warps gives the card's warp schedulers (4
+// an SM) at least 1.5 warps each on average, and a lane group per sample
+// where it would give fewer (su4.cuh).  One thread's sample is a serial
+// chain that one warp per scheduler cannot keep busy; a lane group runs it
+// on G lanes at a cost of ~20 % more instructions.  On an H100 (132 SMs,
+// 700 W) B5 on one thread per sample took 0.99 ms at 1.2 warps a scheduler
+// (5 x 4096 samples) and 0.96 ms at 1.9 (32 x 1024); on lane groups 0.72 and
+// 1.11 ms (PERF.md).
+inline bool lane_groups_pay(int64_t blocks) {
+  return 2 * blocks < 3 * static_cast<int64_t>(sm_count());
+}
+
 // Sum of f over the block; the result is valid in thread 0.
 template <int kThreads>
 __device__ __forceinline__ float block_sum(float f) {

@@ -1,8 +1,8 @@
 // SU(4) per-sample math shared by propagate_su4.cu (B4, B6, B7) and
-// propagate_su4_bwd.cu (B5).  Nothing here is CUDA-specific beyond the
-// qualifiers, fmaf, fmaxf, sincosf and threadIdx / blockDim, so the host
-// tests build it with a C++ compiler and the qualifiers defined away
-// (tests/test_torch_su4_host.py).
+// propagate_su4_bwd.cu (B5, B8).  The kernels replace the Pallas TPU kernels
+// of universal_quantum_optimal_control_tpu/ops/propagate_su4_pallas.py
+// (_prop_kernel: B7, _fid_kernel: B6, _fid_prod_kernel: B4) and
+// propagate_su4_pallas_bwd.py (_bwd_prod_kernel: B5, _bwd_kernel: B8).
 //
 // Math (as core/su4.py and the TPU kernels' _segment_body): per segment,
 // A = -i H tau / 2^s is built from the sparse H (four real diagonal energies
@@ -12,6 +12,46 @@
 // (drive2), or e1 = e^{-i phi}, e2 = chi e^{-i phi}); then
 // exp(A) = P + A^4 Q with the order-8 Paterson-Stockmeyer cubics P and Q in
 // A, A^2, A^3, then s squarings, all carried as exp(A) - I (see t8m1).
+//
+// What bounds the kernels on an H100: f32 arithmetic.  A sample is a chain
+// of L dependent segments of 3661 flops (B4, B6, B7) or 12264-12274 (B5)
+// against 12-140 bytes read; thousands of flops per byte.
+//
+// Two ways to run a sample:
+//   * one thread per sample (compose(), seed(), reverse_sweep()): B7
+//     always; B4, B6, B5 and B8 where a launch fills the card;
+//   * a lane group (compose_lane(), seed_lane(), reverse_sweep_lane()): G
+//     lanes of one warp per sample, B4, B6, B5 and B8 where a launch of one
+//     thread per sample would leave the card's warp schedulers under 1.5
+//     warps each (common.cuh, lane_groups_pay).
+//
+// What held one thread per sample back.  B5 takes 255 registers, so at
+// most two 128-thread blocks fit on an SM; at the per-gate polish's shape
+// (5 targets x 4096 samples) that is 640 warps on the card's 528 warp
+// schedulers, about one warp per scheduler, and a warp cannot hide its own
+// dependent FMAs nor the per-segment stash of V and S_0 in shared memory.
+// Both kernels took the same time at the training shape (32 x 1024 samples,
+// 1.9 warps per scheduler) as at the polish shape with 62 % of the samples
+// (B5 0.9601 / 1.0020 ms, B4 0.2761 / 0.2815 ms; NVIDIA H100 80GB HBM3,
+// 700 W): 37 % (B5) and 40 % (B4) of the arithmetic bound at the polish
+// shape.  G lanes per sample give G times the warps at 1/G of the dense
+// work and fewer registers per lane.  They cost instructions: the segment's
+// powers, P and Q are built by every lane (marked Repeated, not part of the
+// bound), and every exchange is a put and gets through shared memory, so
+// where one thread per sample already fills the schedulers it stays ahead.
+//
+// A lane holds 4 / G columns of each dense 4x4 complex matrix, in its own
+// frame (see Lane): a left product by a sparse (anti-)Hermitian power, which
+// every lane builds from the staged row, is lane-local; a right product,
+// and a dense x dense one, takes the other lanes' columns from an exchange
+// area in shared memory (put, group_sync, get): 128-bit stores and loads,
+// conflict-free (see part).  tests/test_torch_su4_host.py counts the flops
+// of both ways on a host build of this file: the lanes' shares plus the
+// repeated work once are the bound's counts.
+//
+// The host build (tests/test_torch_su4_host.py, g++ -std=c++20 -pthread)
+// defines the CUDA qualifiers away and supplies the group hook itself: the
+// G lanes run as std::threads that meet at a std::barrier.
 
 #pragma once
 
@@ -113,26 +153,6 @@ __device__ __forceinline__ Mat identity() {
   return m;
 }
 
-// a b, dense: 480 flops (each entry 2 products, 14 FMAs).
-__device__ __forceinline__ Mat matmul(const Mat& a, const Mat& b) {
-  Mat c;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float re = a.re[4 * i] * b.re[j];
-      re = fmaf(-a.im[4 * i], b.im[j], re);
-      float im = a.re[4 * i] * b.im[j];
-      im = fmaf(a.im[4 * i], b.re[j], im);
-#pragma unroll
-      for (int k = 1; k < 4; ++k)
-        cmac(a.re[4 * i + k], a.im[4 * i + k], b.re[4 * k + j], b.im[4 * k + j], re, im);
-      c.re[4 * i + j] = re;
-      c.im[4 * i + j] = im;
-    }
-  return c;
-}
-
 // Shared-memory row of the block's target, structure of arrays over L:
 //   [0, L) e1r  [L, 2L) e1i  [2L, 3L) e2r  [3L, 4L) e2i
 //   [4L, 5L) max(Omega, 0) (1 at P = 2)  [5L, 6L) tau / 2^s
@@ -195,15 +215,20 @@ __device__ __forceinline__ void energies(float d1, float d2, float coupling, flo
 // j^2 (x1).  A^2 and A^4 are Hermitian and A^3 anti-Hermitian, so each is
 // formed as an upper triangle and only the products that are not zero are
 // taken.  Flops (FMA = 2): 10 (A), 37 (A^2, closed form), 128 (A^3 = A^2 A),
-// 166 (A^4 = A^2 A^2).  `half` is (1 + eps) / 2.
+// 166 (A^4 = A^2 A^2).  `half` is (1 + eps) / 2; conj1 / conj2 conjugate G1 /
+// G2, as a lane's frame needs them (see Lane).
 __device__ __forceinline__ void powers(const float* row, int L, int k, const float h[4],
-                                       float half, Tri& A, Tri& A2, Tri& A3, Tri& A4) {
+                                       float half, Tri& A, Tri& A2, Tri& A3, Tri& A4,
+                                       bool conj1 = false, bool conj2 = false) {
   const float t = row[5 * L + k];
   const float amp_t = half * row[4 * L + k] * t;
   // G t: G2 on the qubit-2 pairs, G1 on the qubit-1 pairs (H's upper
   // couplings; the lower ones are conj(G))
-  const float g1r = row[k] * amp_t, g1i = row[L + k] * amp_t;
-  const float g2r = row[2 * L + k] * amp_t, g2i = row[3 * L + k] * amp_t;
+  const float g1r = row[k] * amp_t, g2r = row[2 * L + k] * amp_t;
+  float g1i = row[L + k] * amp_t, g2i = row[3 * L + k] * amp_t;
+  // a lane's frame (see Lane) may take conj(G1), conj(G2): a negation
+  if (conj1) g1i = -g1i;
+  if (conj2) g2i = -g2i;
   // entries (0,3) and (1,2) of A are zero and never read
 #pragma unroll
   for (int d = 0; d < 4; ++d) A.d[d] = -h[d] * t;
@@ -417,7 +442,8 @@ __device__ __forceinline__ Mat expm_m1(const Tri& A, const Tri& A2, const Tri& A
   return X;
 }
 
-// Compose the L segments of one sample, left to right: W <- exp(A_k) W.
+// Compose the L segments of one sample in one thread (B7), left to right:
+// W <- exp(A_k) W.
 // Flops per segment: 10 + 37 + 128 + 166 (powers), 184 (P - I and Q), 448
 // (P - I + A^4 Q), 544 per squaring and 512 (W): 3661 at s = 4.  Per sample
 // 10 (the energies and (1 + eps)/2).
@@ -437,8 +463,29 @@ __device__ __forceinline__ Mat compose(const float* row, int L, float d1,
 }
 
 // ---------------------------------------------------------------------------
-// B5: the reverse sweep
+// B5 and B8 in one thread per sample: the reverse sweep
 // ---------------------------------------------------------------------------
+
+// a b, dense: 480 flops (each entry 2 products, 14 FMAs).
+__device__ __forceinline__ Mat matmul(const Mat& a, const Mat& b) {
+  Mat c;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float re = a.re[4 * i] * b.re[j];
+      re = fmaf(-a.im[4 * i], b.im[j], re);
+      float im = a.re[4 * i] * b.im[j];
+      im = fmaf(a.im[4 * i], b.re[j], im);
+#pragma unroll
+      for (int k = 1; k < 4; ++k)
+        cmac(a.re[4 * i + k], a.im[4 * i + k], b.re[4 * k + j], b.im[4 * k + j], re, im);
+      c.re[4 * i + j] = re;
+      c.im[4 * i + j] = im;
+    }
+  return c;
+}
+
 
 // out += kSign H X, H a Hermitian Tri (real diagonal), X dense: 448 flops.
 template <int kSign>
@@ -642,8 +689,9 @@ __device__ __forceinline__ Mat seed(const Mat& Pp, const float* t_re, const floa
   return matmul_nh(G, Pp);
 }
 
-// One sample's reverse sweep, seeded with V = G P^H in stash[0, 32)
-// (stash[32, 64) is scratch), for k = L-1 .. 0.
+// One sample's reverse sweep in one thread, seeded with V = G P^H in
+// stash[0, 32) (stash[32, 64) is scratch), for k = L-1 .. 0; the lane group's
+// reverse_sweep_lane below runs the same math.
 //
 // The TPU kernel's recurrence: the cotangent of segment k's unitary U_k is
 // C_k = V U_k, then V <- U_k^H C_k.  Its expm adjoint maps C_k back through
@@ -809,6 +857,889 @@ __device__ __forceinline__ void reverse_sweep(const float* row, int L, float d1,
     // V <- U_k^H V U_k
     const Mat C = matmul(stash_load(stash, stride), S);
     stash_store(stash, stride, matmul_hn(S, C));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The lane group: G lanes of one warp per sample (B4, B6, B5, B8)
+// ---------------------------------------------------------------------------
+
+constexpr int kSlotFloats = 32;  // one sample's dense matrix
+
+// A lane's frame.  With G lanes per sample, a lane holds NC = 4 / G
+// columns; lane h of its group takes c = h NC and works in the basis
+// permuted by r -> r ^ c: a matrix M reads M'(r, k) = M(r ^ c, k ^ c) there,
+// and the lane holds the frame's columns 0 .. NC-1, which are M's columns
+// c .. c + NC - 1 (Col).  Products keep their form (P_c P_c = I).  H' is H
+// with d1 -> -d1 where c flips qubit 1 (bit 1), d2 -> -d2 where it flips
+// qubit 2 (bit 0), J -> -J where it flips one of them, and G1 -> conj(G1),
+// G2 -> conj(G2) likewise: every lane runs the same code on its own
+// parameters, and every register index is known at compile time.
+struct Col {
+  float re[4], im[4];  // entry r of frame column j is M(r ^ c, j ^ c)
+};
+
+// The lane's place: its first column c and its sample's matrix in slot 0 of
+// the warp's exchange area (slots slot_stride<G> floats apart: one matrix for
+// each of the warp's 32 / G samples).
+struct Lane {
+  float* area;
+  int c;
+  int swz;  // the sample's index in the warp modulo its quarter warp's samples
+};
+
+template <int G>
+constexpr int slot_stride = 32 / G * kSlotFloats;
+
+#ifdef __CUDACC__
+// The group hook on the card: the group is G neighbouring lanes of a warp,
+// and every lane of the warp takes part in every call.
+__device__ __forceinline__ void group_sync() { __syncwarp(); }
+
+// The sum over the group, in the same order in every lane.
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
+  if constexpr (G >= 2) v += __shfl_xor_sync(0xffffffffu, v, 1);
+  if constexpr (G >= 4) v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+// out[d] = the group's value d, where lane h holds values h NC .. h NC + NC-1
+// in v.
+template <int G>
+__device__ __forceinline__ void group_gather(const float (&v)[4 / G], float (&out)[4]) {
+  constexpr int NC = 4 / G;
+  const int base = threadIdx.x & 31 & ~(G - 1);
+#pragma unroll
+  for (int d = 0; d < 4; ++d) out[d] = __shfl_sync(0xffffffffu, v[d % NC], base + d / NC);
+}
+
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+
+// Marks work that every lane of a group does alike; the host's flop count
+// takes it once per sample.
+struct Repeated {
+  __device__ __forceinline__ Repeated() {}
+};
+
+// Marks work that a lane does again beside another where `again` (B8's
+// second lane pair); the host's flop count leaves it out of the needed.
+struct Duplicate {
+  __device__ __forceinline__ explicit Duplicate(bool again) {}
+};
+#endif
+
+// The 16 bytes of slot SLOT holding half q (0: re, 1: im) of column col.  A
+// sample's matrix is 8 such parts; the part index is XORed with the
+// sample's index modulo the samples of a quarter warp (8 / G), so that the 8
+// lanes of a quarter warp touch 8 different 16-byte bank groups in every put
+// and get: a 128-bit access by a warp is then 4 wavefronts, the least for
+// 512 bytes.  Slots are compile-time constants, so that a slot is an
+// immediate offset from a per-lane address the loop does not change.
+template <int G, int SLOT>
+__device__ __forceinline__ float* part(const Lane& ln, int col, int q) {
+  return ln.area + SLOT * slot_stride<G> + 4 * ((2 * col + q) ^ ln.swz);
+}
+
+// The lane's columns into slot SLOT.
+template <int G, int SLOT>
+__device__ __forceinline__ void put(const Lane& ln, const Col (&x)[4 / G]) {
+#pragma unroll
+  for (int j = 0; j < 4 / G; ++j) {
+    st4(part<G, SLOT>(ln, ln.c + j, 0), x[j].re);
+    st4(part<G, SLOT>(ln, ln.c + j, 1), x[j].im);
+  }
+}
+
+// Frame column K (K >= NC: another lane's): M'(r, K) = M(r ^ c, K ^ c),
+// which the lane whose first column is c ^ Kh (Kh = K without its low bits)
+// put as its entry r ^ Kh of column K ^ c.
+template <int G, int SLOT, int K>
+__device__ __forceinline__ Col get(const Lane& ln) {
+  constexpr int Kh = K & ~(4 / G - 1);
+  float re[4], im[4];
+  ld4(part<G, SLOT>(ln, K ^ ln.c, 0), re);
+  ld4(part<G, SLOT>(ln, K ^ ln.c, 1), im);
+  Col v;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    v.re[r] = re[r ^ Kh];
+    v.im[r] = im[r ^ Kh];
+  }
+  return v;
+}
+
+// Frame column K: the lane's own x[K], or another lane's from slot SLOT.
+template <int G, int SLOT, int K>
+__device__ __forceinline__ Col column(const Lane& ln, const Col (&x)[4 / G]) {
+  if constexpr (K < 4 / G) {
+    return x[K];
+  } else {
+    return get<G, SLOT, K>(ln);
+  }
+}
+
+template <int K>
+struct Int {
+  static constexpr int value = K;
+};
+
+// f(Int<K>{}) for K = 0 .. 3.
+template <class F>
+__device__ __forceinline__ void for_k(F&& f) {
+  f(Int<0>{});
+  f(Int<1>{});
+  f(Int<2>{});
+  f(Int<3>{});
+}
+
+__device__ __forceinline__ Col zero_col() {
+  Col v;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) v.re[r] = v.im[r] = 0.0f;
+  return v;
+}
+
+// The lane's frame energies (8 flops) and whether it conjugates G1, G2.
+struct Frame {
+  float h[4];
+  bool conj1, conj2;
+};
+
+__device__ __forceinline__ Frame frame(const Lane& ln, float d1, float d2, float coupling) {
+  Frame f;
+  f.conj1 = (ln.c & 2) != 0;
+  f.conj2 = (ln.c & 1) != 0;
+  energies(f.conj1 ? -d1 : d1, f.conj2 ? -d2 : d2, f.conj1 != f.conj2 ? -coupling : coupling,
+           f.h);
+  return f;
+}
+
+// The lane's columns of T8(A) - I = (P - I) + A^4 Q: 112 flops each.
+template <int G>
+__device__ __forceinline__ void t8m1_cols(const Tri& A4, const Mat& Pm, const Mat& Qm,
+                                          Col (&U)[4 / G]) {
+#pragma unroll
+  for (int j = 0; j < 4 / G; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float re = fmaf(A4.d[i], Qm.re[4 * i + j], Pm.re[4 * i + j]);
+      float im = fmaf(A4.d[i], Qm.im[4 * i + j], Pm.im[4 * i + j]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k == i) continue;
+        float ar, ai;
+        off<true>(A4, i, k, ar, ai);
+        cmac(ar, ai, Qm.re[4 * k + j], Qm.im[4 * k + j], re, im);
+      }
+      U[j].re[i] = re;
+      U[j].im[i] = im;
+    }
+}
+
+// One squaring of I + X, minus I: 2X + X X, 136 flops a column.  X's other
+// columns are in slot.
+template <int G, int SLOT>
+__device__ __forceinline__ void square_m1_cols(const Lane& ln, Col (&x)[4 / G]) {
+  constexpr int NC = 4 / G;
+  Col c[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      c[j].re[i] = 2.0f * x[j].re[i];
+      c[j].im[i] = 2.0f * x[j].im[i];
+    }
+  for_k([&](auto kk) {
+    constexpr int K = decltype(kk)::value;
+    const Col xk = column<G, SLOT, K>(ln, x);
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        cmac(xk.re[i], xk.im[i], x[j].re[K], x[j].im[K], c[j].re[i], c[j].im[i]);
+  });
+#pragma unroll
+  for (int j = 0; j < NC; ++j) x[j] = c[j];
+}
+
+// W <- (I + X) W = W + X W: 128 flops a column.
+template <int G, int SLOT>
+__device__ __forceinline__ void add_mul_cols(const Lane& ln, const Col (&x)[4 / G],
+                                             Col (&w)[4 / G]) {
+  constexpr int NC = 4 / G;
+  Col c[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) c[j] = w[j];
+  for_k([&](auto kk) {
+    constexpr int K = decltype(kk)::value;
+    const Col xk = column<G, SLOT, K>(ln, x);
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        cmac(xk.re[i], xk.im[i], w[j].re[K], w[j].im[K], c[j].re[i], c[j].im[i]);
+  });
+#pragma unroll
+  for (int j = 0; j < NC; ++j) w[j] = c[j];
+}
+
+// One segment of compose_lane: X = T8(A) - I from (A4, Pm, Qm), its s
+// squarings (squaring j through slot j & 1) and W <- W + X W (through slot
+// 2, or at s = 0 slot 2 + (k & 1)), each dense product after one exchange.
+// kNext: right after the segment's first exchange, build segment k + 1's
+// powers, P and Q into (A4, Pm, Qm); they do not depend on this segment's
+// chain, so they fill that exchange's wait.
+template <int G, bool kNext>
+__device__ __forceinline__ void compose_segment(const float* row, int L, int k, const Frame& f,
+                                                float half, int scaling, const Lane& ln,
+                                                Tri& A4, Mat& Pm, Mat& Qm, Col (&w)[4 / G]) {
+  Col X[4 / G];
+  t8m1_cols<G>(A4, Pm, Qm, X);
+  const auto next = [&] {
+    if constexpr (kNext) {
+      const Repeated rep;
+      Tri A, A2, A3;
+      powers(row, L, k + 1, f.h, half, A, A2, A3, A4, f.conj1, f.conj2);
+      pq(A, A2, A3, A4, Pm, Qm);
+    }
+  };
+  if (scaling == 0) {
+    if (k & 1) {
+      put<G, 3>(ln, X);
+      group_sync();
+      next();
+      add_mul_cols<G, 3>(ln, X, w);
+    } else {
+      put<G, 2>(ln, X);
+      group_sync();
+      next();
+      add_mul_cols<G, 2>(ln, X, w);
+    }
+    return;
+  }
+  put<G, 0>(ln, X);
+  group_sync();
+  next();
+  square_m1_cols<G, 0>(ln, X);
+  for (int s = 1; s < scaling; ++s) {
+    if (s & 1) {
+      put<G, 1>(ln, X);
+      group_sync();
+      square_m1_cols<G, 1>(ln, X);
+    } else {
+      put<G, 0>(ln, X);
+      group_sync();
+      square_m1_cols<G, 0>(ln, X);
+    }
+  }
+  put<G, 2>(ln, X);
+  group_sync();
+  add_mul_cols<G, 2>(ln, X, w);
+}
+
+// B4, B6 (and B8's product): compose the L segments of one sample, the
+// lane's columns of the product in its frame, into w.  Per segment: A's
+// powers, P and Q (repeated by every lane, built one segment ahead; see
+// compose_segment), then the lane's columns of T8(A) - I, of each squaring
+// and of W <- W + X W, each dense product after one exchange.  A lane never
+// writes a slot another may still read: consecutive exchanges use
+// different slots.  Per lane and segment: 341 + 184 repeated,
+// (112 + 136 s + 128) NC of the product's 3661 flops.
+template <int G>
+__device__ __forceinline__ void compose_lane(const float* row, int L, float d1, float d2,
+                                             float eps, float coupling, int scaling,
+                                             const Lane& ln, Col (&w)[4 / G]) {
+  constexpr int NC = 4 / G;
+  Frame f;
+  float half;
+  Tri A4;
+  Mat Pm, Qm;
+  {
+    const Repeated rep;
+    f = frame(ln, d1, d2, coupling);
+    half = 0.5f * (1.0f + eps);
+    Tri A, A2, A3;
+    powers(row, L, 0, f.h, half, A, A2, A3, A4, f.conj1, f.conj2);
+    pq(A, A2, A3, A4, Pm, Qm);
+  }
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {  // the frame's columns of I
+    w[j] = zero_col();
+    w[j].re[j] = 1.0f;
+  }
+  for (int k = 0; k + 1 < L; ++k)
+    compose_segment<G, true>(row, L, k, f, half, scaling, ln, A4, Pm, Qm, w);
+  compose_segment<G, false>(row, L, L - 1, f, half, scaling, ln, A4, Pm, Qm, w);
+}
+
+// The lanes per sample of B4's and B6's lane groups; B8's lane groups form
+// their product the same way (product_rows_as_b4), so that it is B4's
+// product value for value.
+constexpr int kComposeLanes = 2;
+// The lanes per sample of B5's and B8's lane groups in the sweep.
+constexpr int kSweepLanes = 4;
+
+// B8 on lane groups of 4 lanes: the group's two pairs each form the sample's
+// product as B4's lane groups do (compose_lane<kComposeLanes>, pair q of the
+// warp's sample g in the exchange area as sample 2 g + q of a 2-lane
+// layout, slots 0 .. SLOT), then lane c reads row c of it, P'(0, K) =
+// P(c, K ^ c), as B5 reads B4's product.  `warp` is the warp's exchange
+// area (5 slots of the 2-lane layout); the caller syncs the group before
+// it puts the area to other use.
+template <int SLOT>
+__device__ __forceinline__ void product_rows_as_b4(const float* row, int L, float d1, float d2,
+                                                   float eps, float coupling, int scaling,
+                                                   float* warp, int g, int c, float (&pr)[1][4],
+                                                   float (&pi)[1][4]) {
+  constexpr int G = kComposeLanes;
+  const int g2 = 2 * g + (c >> 1);
+  const Lane ln{warp + kSlotFloats * g2, (c & 1) * (4 / G), g2 & (8 / G - 1)};
+  Col W[4 / G];
+  {
+    const Duplicate dup(c >= 2);  // the second pair forms the same product
+    compose_lane<G>(row, L, d1, d2, eps, coupling, scaling, ln, W);
+  }
+  put<G, SLOT>(ln, W);
+  group_sync();
+  // P(c, k) is entry c ^ (k & 2) of column k, which the pair's lane with
+  // first column k & 2 put in its frame
+#pragma unroll
+  for (int K = 0; K < 4; ++K) {
+    const int k = K ^ c, e = c ^ (k & 2);
+    pr[0][K] = part<G, SLOT>(ln, k, 0)[e];
+    pi[0][K] = part<G, SLOT>(ln, k, 1)[e];
+  }
+}
+
+// The seed of the sweep, V = G P^H, the lane's columns in the frame: G is
+// the cotangent of the sample's product P under F = (|Tr(P^H T)|^2 + 4) / 20
+// times g_f = gbar / M (_fid_cotangent of the TPU kernel): with
+// re + i im = Tr(P^H T) and g = g_f 2 / 20,
+// G = g (re T_r + im T_i) + i g (re T_i - im T_r).  (pr, pi) are the frame's
+// rows of P the lane holds (product_rows_as_b4, or B4's product in device
+// memory); T is the block's target, row-major.  The trace takes 32 flops a
+// row and a sum over the group, G (98) is repeated, V 120 a column: 706 per
+// sample.
+template <int G>
+__device__ __forceinline__ void seed_lane(const float (&pr)[4 / G][4],
+                                          const float (&pi)[4 / G][4], const float* t_re,
+                                          const float* t_im, float g, const Lane& ln,
+                                          Col (&V)[4 / G]) {
+  constexpr int NC = 4 / G;
+  // T'(r, k) = T(r ^ c, k ^ c) sits at (4 r + k) ^ 5c
+  const int perm = 5 * ln.c;
+  float re = 0.0f, im = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int e = (4 * j + k) ^ perm;
+      re = fmaf(pr[j][k], t_re[e], re);
+      re = fmaf(pi[j][k], t_im[e], re);
+      im = fmaf(pr[j][k], t_im[e], im);
+      im = fmaf(-pi[j][k], t_re[e], im);
+    }
+  re = group_sum<G>(re);
+  im = group_sum<G>(im);
+  Mat Gm;
+  {
+    const Repeated rep;
+    const float gr = g * re, gi = g * im;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int t = e ^ perm;
+      Gm.re[e] = fmaf(gr, t_re[t], gi * t_im[t]);
+      Gm.im[e] = fmaf(gr, t_im[t], -gi * t_re[t]);
+    }
+  }
+  // V'(i, j) = sum_k G'(i, k) conj(P'(j, k))
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float vr = Gm.re[4 * i] * pr[j][0];
+      vr = fmaf(Gm.im[4 * i], pi[j][0], vr);
+      float vi = Gm.im[4 * i] * pr[j][0];
+      vi = fmaf(-Gm.re[4 * i], pi[j][0], vi);
+#pragma unroll
+      for (int k = 1; k < 4; ++k)
+        cmac_cb(Gm.re[4 * i + k], Gm.im[4 * i + k], pr[j][k], pi[j][k], vr, vi);
+      V[j].re[i] = vr;
+      V[j].im[i] = vi;
+    }
+}
+
+// out += kSign H x, H a Hermitian Tri (real diagonal), lane-local: 112 flops
+// a column.
+template <int G, int kSign>
+__device__ __forceinline__ void herm_mul(Col (&out)[4 / G], const Tri& H,
+                                         const Col (&x)[4 / G]) {
+#pragma unroll
+  for (int j = 0; j < 4 / G; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float re = out[j].re[i], im = out[j].im[i];
+      re = fmaf(sgn<kSign>(H.d[i]), x[j].re[i], re);
+      im = fmaf(sgn<kSign>(H.d[i]), x[j].im[i], im);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k == i) continue;
+        float hr, hi;
+        off<true>(H, i, k, hr, hi);
+        cmac_s<kSign>(hr, hi, x[j].re[k], x[j].im[k], re, im);
+      }
+      out[j].re[i] = re;
+      out[j].im[i] = im;
+    }
+}
+
+// out += kSign A x with A as built by powers() (anti-Hermitian, imaginary
+// diagonal, row i non-zero off the diagonal in columns i^1 and i^2),
+// lane-local: 80 flops a column.
+template <int G, int kSign>
+__device__ __forceinline__ void a_mul(Col (&out)[4 / G], const Tri& A, const Col (&x)[4 / G]) {
+#pragma unroll
+  for (int j = 0; j < 4 / G; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float re = out[j].re[i], im = out[j].im[i];
+      re = fmaf(sgn<-kSign>(A.d[i]), x[j].im[i], re);  // (i a_i) x(i)
+      im = fmaf(sgn<kSign>(A.d[i]), x[j].re[i], im);
+#pragma unroll
+      for (int q = 1; q <= 2; ++q) {
+        const int k = i ^ q;
+        float ar, ai;
+        off<false>(A, i, k, ar, ai);
+        cmac_s<kSign>(ar, ai, x[j].re[k], x[j].im[k], re, im);
+      }
+      out[j].re[i] = re;
+      out[j].im[i] = im;
+    }
+}
+
+// out += kSign X H, H a Hermitian Tri; X's own columns x, the others in
+// slot: 112 flops a column.
+template <int G, int kSign, int SLOT>
+__device__ __forceinline__ void mul_herm(Col (&out)[4 / G], const Lane& ln,
+                                         const Col (&x)[4 / G], const Tri& H) {
+  for_k([&](auto kk) {
+    constexpr int K = decltype(kk)::value;
+    const Col xk = column<G, SLOT, K>(ln, x);
+#pragma unroll
+    for (int j = 0; j < 4 / G; ++j) {
+      if (K == j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          out[j].re[i] = fmaf(sgn<kSign>(H.d[j]), xk.re[i], out[j].re[i]);
+          out[j].im[i] = fmaf(sgn<kSign>(H.d[j]), xk.im[i], out[j].im[i]);
+        }
+      } else {
+        float hr, hi;
+        off<true>(H, K, j, hr, hi);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          cmac_s<kSign>(xk.re[i], xk.im[i], hr, hi, out[j].re[i], out[j].im[i]);
+      }
+    }
+  });
+}
+
+// out += kSign X A, A as in a_mul (column j non-zero in rows j, j^1, j^2):
+// 80 flops a column.
+template <int G, int kSign, int SLOT>
+__device__ __forceinline__ void mul_a(Col (&out)[4 / G], const Lane& ln,
+                                      const Col (&x)[4 / G], const Tri& A) {
+  constexpr int NC = 4 / G;
+  for_k([&](auto kk) {
+    constexpr int K = decltype(kk)::value;
+    // columns K that some own column j reads: K = j, j^1, j^2
+    bool read = false;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) read = read || (K ^ j) != 3;
+    if (!read) return;
+    const Col xk = column<G, SLOT, K>(ln, x);
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      if (K == j) {  // x(i) (i a_j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          out[j].re[i] = fmaf(sgn<-kSign>(A.d[j]), xk.im[i], out[j].re[i]);
+          out[j].im[i] = fmaf(sgn<kSign>(A.d[j]), xk.re[i], out[j].im[i]);
+        }
+      } else if ((K ^ j) != 3) {
+        float ar, ai;
+        off<false>(A, K, j, ar, ai);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          cmac_s<kSign>(xk.re[i], xk.im[i], ar, ai, out[j].re[i], out[j].im[i]);
+      }
+    }
+  });
+}
+
+// X Q^H: column j is sum_k X[:, k] conj(Q(j, k)): 120 flops a column.
+template <int G, int SLOT>
+__device__ __forceinline__ void mul_nh(Col (&out)[4 / G], const Lane& ln,
+                                       const Col (&x)[4 / G], const Mat& Q) {
+  for_k([&](auto kk) {
+    constexpr int K = decltype(kk)::value;
+    const Col xk = column<G, SLOT, K>(ln, x);
+#pragma unroll
+    for (int j = 0; j < 4 / G; ++j) {
+      const float qr = Q.re[4 * j + K], qi = Q.im[4 * j + K];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (K == 0) {
+          float re = xk.re[i] * qr;
+          re = fmaf(xk.im[i], qi, re);
+          float im = xk.im[i] * qr;
+          im = fmaf(-xk.re[i], qi, im);
+          out[j].re[i] = re;
+          out[j].im[i] = im;
+        } else {
+          cmac_cb(xk.re[i], xk.im[i], qr, qi, out[j].re[i], out[j].im[i]);
+        }
+      }
+    }
+  });
+}
+
+// One forward squaring of S = I + X beside the adjoint of S -> S^2 on E, the
+// lane's columns (X's and E's others in slots SLOT and SLOT + 1):
+//   X <- 2X + X X (136 flops a column),  E <- 2E + X^H E + E X^H (264).
+template <int G, int SLOT>
+__device__ __forceinline__ void square_pair(const Lane& ln, Col (&x)[4 / G], Col (&e)[4 / G]) {
+  constexpr int NC = 4 / G;
+  Col xn[NC], en[NC];
+  float xr[NC][4], xi[NC][4];  // X'(j, K)
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      xn[j].re[i] = 2.0f * x[j].re[i];
+      xn[j].im[i] = 2.0f * x[j].im[i];
+      en[j].re[i] = 2.0f * e[j].re[i];
+      en[j].im[i] = 2.0f * e[j].im[i];
+    }
+  // X's column K gives X X's term K, row K of X^H E and X(j, K)
+  for_k([&](auto kk) {
+    constexpr int K = decltype(kk)::value;
+    const Col xk = column<G, SLOT, K>(ln, x);
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        cmac(xk.re[i], xk.im[i], x[j].re[K], x[j].im[K], xn[j].re[i], xn[j].im[i]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        cmac_ca(xk.re[r], xk.im[r], e[j].re[r], e[j].im[r], en[j].re[K], en[j].im[K]);
+      xr[j][K] = xk.re[j];
+      xi[j][K] = xk.im[j];
+    }
+  });
+  for_k([&](auto kk) {
+    constexpr int K = decltype(kk)::value;
+    const Col ek = column<G, SLOT + 1, K>(ln, e);
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        cmac_cb(ek.re[i], ek.im[i], xr[j][K], xi[j][K], en[j].re[i], en[j].im[i]);
+  });
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    x[j] = xn[j];
+    e[j] = en[j];
+  }
+}
+
+// The exchange slots of the sweep: 0-3 (two pairs for the squarings), V's,
+// and the pair of U_k and E_s.
+constexpr int kSweepSlots = 7;
+constexpr int kSlotV = 4;
+constexpr int kSlotFinal = 5;
+
+// B5 and B8: one sample's reverse sweep from V = G P^H (the lane's columns,
+// from seed_lane), for k = L-1 .. 0.
+//
+// The TPU kernel's recurrence: the cotangent of segment k's unitary U_k is
+// C_k = V U_k, then V <- U_k^H C_k.  Its expm adjoint maps C_k back through
+// the s squarings (C <- S_j^H C + C S_j^H, j = s-1 .. 0, where S_0 = T8(A)
+// and S_{j+1} = S_j^2) and through T8 = P + A^4 Q by the product rule, to
+// D = dL/dA.  Every map in that chain is a sum of terms X -> M1 X M2 with
+// M1, M2 polynomials in A^H = -A, and U_k is a polynomial in A, so they all
+// commute with each other and with multiplication by U_k:
+//     D = Adj(V U_k) = Adj(V) U_k,
+// and the squarings' adjoints may be applied in forward order.  So each
+// segment runs the T8 adjoint on V, then the squarings forward, S_j and the
+// adjoint side by side (no S_j is stored, none rebuilt), then D = E U_k
+// (only the 20 entries the chain rule reads), then V <- U_k^H V U_k.
+//
+// In the lane group, per segment (s + 5 exchanges, each a put of the lane's
+// columns of one or two matrices, group_sync, and gets of the others'):
+//   V -> slot 4 and S_0 -> slot 0; the T8 adjoint of X = V:
+//     Y = A^4 X (the cotangent of Q)
+//     dA4 = X Q^H + c8 Y,  dA3 = c3 X + c7 Y
+//     dA2 = c2 X + c6 Y + dA4 A^2 + A^2 dA4 - dA3 A   (dA4 -> 1, dA3 -> 2)
+//     E = dA = X + c5 Y + A^2 dA3 - dA2 A - A dA2     (dA2 -> 3)
+//   (A^H = -A, (A^2)^H = A^2, (A^4)^H = A^4); E_0 -> 1; squaring j reads
+//   pair j & 1 (S_j, E_j in slots 2 (j & 1) and 2 (j & 1) + 1) and puts
+//   S_{j+1}, E_{j+1} into the other pair; U_k = I + S_s and E_s go to slots
+//   5 and 6; then D's entries of the lane's columns (their diagonal and
+//   coupled entries) and V's columns of U_k^H (V U_k); a last group_sync
+//   frees the slots for the next segment.
+//
+// D to the parameters (_param_grads_from_D of the TPU kernel): A = t K with
+// K = -i H, so dt = sum(Dr Kr + Di Ki), d tau = dt / 2^s; the diagonal
+// energies take -t Di(d, d); a coupling G = amp e (upper entries of H; the
+// lower are conj(G)) takes dG_r = -t (Di over its pairs, both triangles),
+// dG_i = t (Dr upper - Dr lower); then amp = (1 + eps)/2 max(Omega, 0), the
+// envelopes and the phases.  dOmega is gated on Omega > 0 as the TPU kernel
+// gates it (the staged max(Omega, 0) > 0 exactly when Omega > 0).  The group
+// gathers D's diagonal and sums its coupled entries, then every lane runs the
+// chain rule alike.
+//
+// sink(k, v, lead) receives the P pulse cotangents of segment k, in the
+// pulses' channel order (lead: this lane is its group's first); dd1, dd2
+// and de accumulate the per-sample ones, alike in every lane.
+template <int G, int P, class Sink>
+__device__ __forceinline__ void reverse_sweep_lane(const float* row, int L, float d1, float d2,
+                                                   float eps, float coupling, float xtalk,
+                                                   int scaling, float tau_scale, const Lane& ln,
+                                                   Col (&V)[4 / G], float& dd1, float& dd2,
+                                                   float& de, Sink& sink) {
+  constexpr int NC = 4 / G;
+  Frame f;
+  float half;
+  {
+    const Repeated rep;
+    f = frame(ln, d1, d2, coupling);
+    half = 0.5f * (1.0f + eps);
+  }
+  float h[4];  // H's diagonal: h_d is lane (d / NC)'s frame energy d mod NC
+  {
+    float own[NC];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) own[j] = f.h[j];
+    group_gather<G>(own, h);
+  }
+  for (int k = L - 1; k >= 0; --k) {
+    // forward: A, its powers, P, Q; S_0 = T8(A) - I to slot 0
+    Tri A, A2, A3, A4;
+    Mat Pm, Qm;
+    {
+      const Repeated rep;
+      powers(row, L, k, f.h, half, A, A2, A3, A4, f.conj1, f.conj2);
+      pq(A, A2, A3, A4, Pm, Qm);
+    }
+    {
+      Col S0[NC];
+      t8m1_cols<G>(A4, Pm, Qm, S0);
+      put<G, 0>(ln, S0);
+    }
+    put<G, kSlotV>(ln, V);
+    group_sync();
+    // the T8 adjoint of X = V
+    Col E[NC], dA2[NC];
+    {
+      Col Y[NC], dA4[NC], dA3[NC];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) Y[j] = zero_col();
+      herm_mul<G, 1>(Y, A4, V);
+      mul_nh<G, kSlotV>(dA4, ln, V, Qm);
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          dA4[j].re[r] = fmaf(kC8, Y[j].re[r], dA4[j].re[r]);
+          dA4[j].im[r] = fmaf(kC8, Y[j].im[r], dA4[j].im[r]);
+          dA2[j].re[r] = fmaf(kC6, Y[j].re[r], kC2 * V[j].re[r]);
+          dA2[j].im[r] = fmaf(kC6, Y[j].im[r], kC2 * V[j].im[r]);
+          dA3[j].re[r] = fmaf(kC7, Y[j].re[r], kC3 * V[j].re[r]);
+          dA3[j].im[r] = fmaf(kC7, Y[j].im[r], kC3 * V[j].im[r]);
+          E[j].re[r] = fmaf(kC5, Y[j].re[r], V[j].re[r]);
+          E[j].im[r] = fmaf(kC5, Y[j].im[r], V[j].im[r]);
+        }
+      put<G, 1>(ln, dA4);
+      put<G, 2>(ln, dA3);
+      group_sync();
+      mul_herm<G, 1, 1>(dA2, ln, dA4, A2);
+      herm_mul<G, 1>(dA2, A2, dA4);
+      mul_a<G, -1, 2>(dA2, ln, dA3, A);
+      herm_mul<G, 1>(E, A2, dA3);
+    }
+    put<G, 3>(ln, dA2);
+    group_sync();
+    mul_a<G, -1, 3>(E, ln, dA2, A);
+    a_mul<G, -1>(E, A, dA2);
+    // the squarings, forward: S_{j+1} = S_j^2 beside E <- S_j^H E + E S_j^H,
+    // with S_j = I + X_j carried as X_j (see t8m1)
+    Col S[NC];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {  // the lane's own columns of S_0, put above
+      ld4(part<G, 0>(ln, ln.c + j, 0), S[j].re);
+      ld4(part<G, 0>(ln, ln.c + j, 1), S[j].im);
+    }
+    put<G, 1>(ln, E);
+    for (int j = 0; j < scaling; ++j) {
+      group_sync();
+      const bool more = j + 1 < scaling;
+      if (j & 1) {
+        square_pair<G, 2>(ln, S, E);
+        if (more) {
+          put<G, 0>(ln, S);
+          put<G, 1>(ln, E);
+        }
+      } else {
+        square_pair<G, 0>(ln, S, E);
+        if (more) {
+          put<G, 2>(ln, S);
+          put<G, 3>(ln, E);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NC; ++j) S[j].re[j] = S[j].re[j] + 1.0f;  // S = U_k
+    put<G, kSlotFinal>(ln, S);
+    put<G, kSlotFinal + 1>(ln, E);
+    group_sync();
+    // D = E U_k at the lane's entries: in each own column j, the imaginary
+    // diagonal (j, j) and the coupled (j^1, j) (qubit 2) and (j^2, j)
+    // (qubit 1) of the frame
+    float dg[NC], q2r[NC], q2i[NC], q1r[NC], q1i[NC];
+    for_k([&](auto kk) {
+      constexpr int K = decltype(kk)::value;
+      const Col ek = column<G, kSlotFinal + 1, K>(ln, E);
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const float ur = S[j].re[K], ui = S[j].im[K];
+        if (K == 0) {
+          dg[j] = ek.re[j] * ui;
+          dg[j] = fmaf(ek.im[j], ur, dg[j]);
+          q2r[j] = ek.re[j ^ 1] * ur;
+          q2r[j] = fmaf(-ek.im[j ^ 1], ui, q2r[j]);
+          q2i[j] = ek.re[j ^ 1] * ui;
+          q2i[j] = fmaf(ek.im[j ^ 1], ur, q2i[j]);
+          q1r[j] = ek.re[j ^ 2] * ur;
+          q1r[j] = fmaf(-ek.im[j ^ 2], ui, q1r[j]);
+          q1i[j] = ek.re[j ^ 2] * ui;
+          q1i[j] = fmaf(ek.im[j ^ 2], ur, q1i[j]);
+        } else {
+          dg[j] = fmaf(ek.re[j], ui, dg[j]);
+          dg[j] = fmaf(ek.im[j], ur, dg[j]);
+          cmac(ek.re[j ^ 1], ek.im[j ^ 1], ur, ui, q2r[j], q2i[j]);
+          cmac(ek.re[j ^ 2], ek.im[j ^ 2], ur, ui, q1r[j], q1i[j]);
+        }
+      }
+    });
+    // X1 / X2 over the qubit-1 and qubit-2 pairs: xr = sum of Di over both
+    // triangles, xi = Dr upper - Dr lower; the lane's share, then the group's.
+    // Frame entry (r, j) is (r ^ c, j ^ c), upper where r ^ c < j ^ c.
+    float x1r = 0.0f, x1i = 0.0f, x2r = 0.0f, x2i = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int col = j ^ ln.c;
+      x2r = x2r + q2i[j];
+      x2i = (col ^ 1) < col ? x2i + q2r[j] : x2i - q2r[j];
+      x1r = x1r + q1i[j];
+      x1i = (col ^ 2) < col ? x1i + q1r[j] : x1i - q1r[j];
+    }
+    x1r = group_sum<G>(x1r);
+    x1i = group_sum<G>(x1i);
+    x2r = group_sum<G>(x2r);
+    x2i = group_sum<G>(x2i);
+    float ddiag[4];
+    group_gather<G>(dg, ddiag);
+    float v[P];
+    {
+      const Repeated rep;
+      const float t = row[5 * L + k], om = row[4 * L + k], amp = half * om;
+      const float e1r = row[k], e1i = row[L + k], e2r = row[2 * L + k], e2i = row[3 * L + k];
+      // dt = -sum_d h_d Di(d, d) + sum over couplings of (Dr Kr + Di Ki)
+      float dt = -h[0] * ddiag[0];
+      dt = fmaf(-h[1], ddiag[1], dt);
+      dt = fmaf(-h[2], ddiag[2], dt);
+      dt = fmaf(-h[3], ddiag[3], dt);
+      const float g1r = amp * e1r, g1i = amp * e1i, g2r = amp * e2r, g2i = amp * e2i;
+      dt = fmaf(g1i, x1i, dt);
+      dt = fmaf(-g1r, x1r, dt);
+      dt = fmaf(g2i, x2i, dt);
+      dt = fmaf(-g2r, x2r, dt);
+      const float ht = 0.5f * t;
+      dd1 = fmaf(-ht, (ddiag[0] + ddiag[1]) - (ddiag[2] + ddiag[3]), dd1);
+      dd2 = fmaf(-ht, (ddiag[0] - ddiag[1]) + (ddiag[2] - ddiag[3]), dd2);
+      const float dh1r = -t * x1r, dh1i = t * x1i, dh2r = -t * x2r, dh2i = t * x2i;
+      float damp = e1r * dh1r;
+      damp = fmaf(e1i, dh1i, damp);
+      damp = fmaf(e2r, dh2r, damp);
+      damp = fmaf(e2i, dh2i, damp);
+      de = fmaf(0.5f * om, damp, de);
+      const float de1r = amp * dh1r, de1i = amp * dh1i, de2r = amp * dh2r, de2i = amp * dh2i;
+      v[P - 1] = dt * tau_scale;
+      const float c1 = row[6 * L + k], s1 = row[7 * L + k];
+      if constexpr (P == 4) {
+        const float c2 = row[8 * L + k], s2 = row[9 * L + k];
+        const float dc1 = fmaf(xtalk, de2r, de1r), ds1 = -fmaf(xtalk, de2i, de1i);
+        const float dc2 = fmaf(xtalk, de1r, de2r), ds2 = -fmaf(xtalk, de1i, de2i);
+        v[0] = fmaf(c1, ds1, -s1 * dc1);
+        v[1] = fmaf(c2, ds2, -s2 * dc2);
+      } else {
+        const float dc = fmaf(xtalk, de2r, de1r), ds = -fmaf(xtalk, de2i, de1i);
+        v[0] = fmaf(c1, ds, -s1 * dc);
+      }
+      if constexpr (P >= 3) v[P - 2] = om > 0.0f ? half * damp : 0.0f;
+    }
+    sink(k, v, ln.c == 0);
+
+    // V <- U_k^H (V U_k): C = V U_k from V's columns in slot 4; then
+    // U_k^H C, row K from U_k's column K
+    Col C[NC];
+    for_k([&](auto kk) {
+      constexpr int K = decltype(kk)::value;
+      const Col vk = column<G, kSlotV, K>(ln, V);
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (K == 0) {
+            float re = vk.re[i] * S[j].re[0];
+            re = fmaf(-vk.im[i], S[j].im[0], re);
+            float im = vk.re[i] * S[j].im[0];
+            im = fmaf(vk.im[i], S[j].re[0], im);
+            C[j].re[i] = re;
+            C[j].im[i] = im;
+          } else {
+            cmac(vk.re[i], vk.im[i], S[j].re[K], S[j].im[K], C[j].re[i], C[j].im[i]);
+          }
+        }
+    });
+    for_k([&](auto kk) {
+      constexpr int K = decltype(kk)::value;
+      const Col uk = column<G, kSlotFinal, K>(ln, S);
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        float re = uk.re[0] * C[j].re[0];
+        re = fmaf(uk.im[0], C[j].im[0], re);
+        float im = uk.re[0] * C[j].im[0];
+        im = fmaf(-uk.im[0], C[j].re[0], im);
+#pragma unroll
+        for (int r = 1; r < 4; ++r) cmac_ca(uk.re[r], uk.im[r], C[j].re[r], C[j].im[r], re, im);
+        V[j].re[K] = re;
+        V[j].im[K] = im;
+      }
+    });
+    group_sync();
   }
 }
 

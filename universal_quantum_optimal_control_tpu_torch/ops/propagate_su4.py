@@ -218,7 +218,7 @@ def _launch_mean_fidelity(pulses, target_re, target_im, delta1, delta2, epsilon,
     B, L, P, M = _check(pulses, delta1, delta2, epsilon, system, target_re, target_im)
     lib = load_library("su4")
     dev = pulses.device
-    partials = torch.empty((B, lib.uqoc_su4_num_blocks(M)), dtype=torch.float32, device=dev)
+    partials = torch.empty((B, lib.uqoc_su4_num_blocks(B, M)), dtype=torch.float32, device=dev)
     out = torch.empty((B,), dtype=torch.float32, device=dev)
     prod = torch.empty((B, 32, M), dtype=torch.float32, device=dev) if product else None
     args = (pulses.data_ptr(), target_re.data_ptr(), target_im.data_ptr(),
@@ -246,7 +246,7 @@ def _launch_vjp(pulses, target_re, target_im, delta1, delta2, epsilon, gbar, pro
                         gbar, prod)
     lib = load_library("su4_bwd")
     dev = pulses.device
-    partials = torch.empty((B, lib.uqoc_su4_vjp_num_blocks(M), L * P), dtype=torch.float32,
+    partials = torch.empty((B, lib.uqoc_su4_vjp_num_blocks(B, M), L * P), dtype=torch.float32,
                            device=dev)
     dpulses = torch.empty((B, L, P), dtype=torch.float32, device=dev)
     dd1, dd2, deps = (torch.empty((B, M), dtype=torch.float32, device=dev) for _ in range(3))
