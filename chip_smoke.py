@@ -13,9 +13,11 @@ Fifteen phases, each printing its own line with its seconds:
    spills per kernel;
 3. check: kernels B1 (mean fidelity), B3 (per-sample product) and B2 (the
    VJP of B3) against their plain PyTorch versions on the card, P ∈ {2, 3,
-   4}, L ∈ {1, 7, 100}, M ∈ {1000, 2¹⁶}, plus B2 at L = 400, P = 4; and the
-   full gradient of B1 (its backward runs B3 and B2) against autograd
-   through its plain version;
+   4}, L ∈ {1, 7, 100}, M ∈ {1000, 2¹⁶}, at L = 100 also against the
+   plain version in f64 beside the plain f32 version's own error, plus B2
+   at L = 400 and L = 1000 (its shared-memory opt-in), P = 4; and the full
+   gradient of B1 (its backward runs B3 and B2) against autograd through
+   its plain version;
 4. check-su4: kernels B7 (SU(4) per-sample product) and B6 (SU(4) mean
    fidelity) against their plain versions, P ∈ {2, 3, 4 (drive2)},
    L ∈ {1, 7, 100}, M ∈ {200, 2¹⁴}; at L = 100 also against the plain
@@ -70,10 +72,14 @@ Fifteen phases, each printing its own line with its seconds:
     ``cz_drive2`` E[F](σ_δ) sweeps (``demo/app.py``) through B7 against
     the JAX package's CPU sweep;
 15. time: each kernel at the shape of each path that runs it, with CUDA
-    events, beside its plain version, its bound and its ptxas registers,
-    spills and stack, and for the lane-group kernels B4, B6, B5 and B8 the
-    resident blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
-    exported by the libraries) and the launch's warps per warp scheduler;
+    events (for B1, B2 and B3 also the device's time of the kernels alone,
+    each call queued behind a long one: their wrappers' host time exceeds a
+    short launch's), beside its plain version, its bound and its ptxas registers,
+    spills and stack, and the resident blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, exported by the
+    libraries) with, for B1, B2 and B3, the threads per block and the
+    launch's waves, for the lane-group kernels B4, B6, B5 and B8 the lanes
+    per sample and the launch's warps per warp scheduler;
     one row of the ``kernels`` line per kernel and path, with that path's
     launches (B4 and B5 at both the polish's and the training shape).
 
@@ -109,22 +115,30 @@ import torch
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# flops per (sample, segment), an FMA counted as 2 as in the peak above:
-# Hamilton product 28 (16 products, 12 sums); sincos 20 (range reduction and
-# the two minimax polynomials the JAX kernel evaluates); segment build 5 at
-# P = 2 (half angle, sin scale, 3 axis products), 12 at P = 3 (axis norm,
-# angle, division, 4 products), 13 at P = 4 (+ Δ + δ).
-FLOPS_PER_SEGMENT = {2: 53, 3: 60, 4: 61}
+# flops per (sample, segment), an FMA counted as 2 as in the peak above, as
+# tests/test_torch_su2_host.py counts them on a host build of ops/csrc/su2.cuh
+# (compose()) on the path every angle within pi / 2 takes: sincos 20 (sin
+# degree 9 and cos degree 10 by Horner in x^2), the half angle and sin x / n
+# 2; at P = 2 a pair of segments at a time (pair2: the pair's product 22, one
+# Hamilton product 28, 25 a segment), at P = 3 / 4 the axis norm 4, its
+# inverse, the angle's factor, 3 axis products (+ Delta + delta at P = 4) and
+# a Hamilton product 28.  Per sample: 8 at P = 2 ((1 + eps) / 2, the axis
+# norm, its inverse, the angle's factor, delta^2), 2 at P = 3 / 4.  A sample
+# whose angles may pass pi / 2 takes libm's sincosf (more work, not counted
+# here: its bound is low); each B1/B2/B3 row prints how many did
+# (libm_samples).
+FLOPS_PER_SEGMENT = {2: 47, 3: 58, 4: 59}
+FLOPS_PER_SAMPLE = {2: 8, 3: 2, 4: 2}
 FLOPS_PER_SAMPLE_FIDELITY = 12  # <q, q_t>, F, the sum
 
-# B2 per (sample, segment), counted the same way from propagate_mc_vjp_kernel:
-# the forward rebuild (segment 25 / 33 / 34 at P = 2 / 3 / 4, Hamilton 28),
-# the sweep's segment again, three Hamilton products (R_k, A_k = G o conj(R_k)
-# and the update G <- conj(q_k) o G, where G = conj(L_k) o g: 84), the chain
-# rule (39 at P = 2; 55 with the Omega term at P = 3 / 4) and one add per
-# pulse channel for the sum over samples.  Three products are what the VJP
-# needs.
-VJP_FLOPS_PER_SEGMENT = {2: 203, 3: 236, 4: 239}
+# B2 per (sample, segment), counted the same way from su2.cuh's sweep(): the
+# segment again (25 / 30 / 31 at P = 2 / 3 / 4), two Hamilton products
+# (A_k = X o (Y o q_k): 56), the chain rule (20 at P = 2; 39 / 40 with the
+# Omega term) and one add per pulse channel for the sum over samples; per
+# sample 15 at P = 2 (the factors, and dd, de from the two sums), 3 at
+# P = 3 / 4.  B2 reads B3's product; it does not rebuild it.
+VJP_FLOPS_PER_SEGMENT = {2: 103, 3: 127, 4: 129}
+VJP_FLOPS_PER_SAMPLE = {2: 15, 3: 3, 4: 3}
 
 FID_TOL = 1e-5  # as tests/test_pallas_kernel.py holds the JAX kernels
 XPI_PUBLISHED = 0.9502  # README.md per-gate table, flagship X(π) at σ_δ = 1.0
@@ -300,17 +314,38 @@ def roofline(ops, nbytes):
 
 
 def bound(B, L, P, M, out_bytes, fidelity):
-    ops = B * M * (L * FLOPS_PER_SEGMENT[P]
+    ops = B * M * (L * FLOPS_PER_SEGMENT[P] + FLOPS_PER_SAMPLE[P]
                    + (FLOPS_PER_SAMPLE_FIDELITY if fidelity else 0))
     in_bytes = 4 * (B * L * P + 2 * B * M + (4 * B if fidelity else 0))
     return roofline(ops, in_bytes + out_bytes)
 
 
+def libm_samples(pulses, delta, eps) -> int:
+    """Samples whose angles may pass the polynomial sincos's range, pi / 2,
+    so that B1, B2 and B3 take libm's sincosf for them: su2.cuh's
+    angle_bound from the row's max |tau| (and |tau| sqrt(Omega^2 + Delta^2)
+    at P >= 3); B2 takes it for the sample's whole warp."""
+    P = pulses.shape[-1]
+    tau = pulses[..., -1].abs()
+    h = (0.5 * (1.0 + eps)).abs()
+    t0 = tau.amax(dim=1, keepdim=True)
+    if P == 2:
+        x = t0 * (h * torch.sqrt(delta * delta + 1.0))
+    else:
+        om = pulses[..., 1].clamp(min=0.0)
+        det = pulses[..., 2] if P == 4 else torch.zeros_like(om)
+        t1 = (tau * torch.sqrt(det * det + om * om)).amax(dim=1, keepdim=True)
+        x = h * (t0 * delta.abs() + t1)
+    return int((~(x <= 1.5707963)).sum())
+
+
 def vjp_bound(B, L, P, M):
-    """B2: reads pulses, δ, ε and g (B, M, 4) once; writes dpulses, dδ, dε."""
-    in_bytes = 4 * (B * L * P + 2 * B * M + 4 * B * M)
+    """B2: reads pulses, δ, ε, g (B, M, 4) and B3's product q (B, M, 4)
+    once; writes dpulses, dδ, dε."""
+    in_bytes = 4 * (B * L * P + 2 * B * M + 8 * B * M)
     out_bytes = 4 * (B * L * P + 2 * B * M)
-    return roofline(B * M * L * VJP_FLOPS_PER_SEGMENT[P], in_bytes + out_bytes)
+    return roofline(B * M * (L * VJP_FLOPS_PER_SEGMENT[P] + VJP_FLOPS_PER_SAMPLE[P]),
+                    in_bytes + out_bytes)
 
 
 def grads_close(what, names, atols, got, want, exact):
@@ -541,6 +576,28 @@ def step_profile(step, n: int, keys=(), per_call: int = 1) -> dict:
     ours_ms = sum(e.self_device_time_total for e in events
                   if any(k in e.key for k in keys)) / (3e3 * per_call)
     return {"ms": ms, "device_ms": dev_ms, "kernel_ms": ours_ms}
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """The device's time per call of ``fn``'s kernels alone: each call is
+    queued behind a 2048² matrix product that keeps the stream busy while
+    the host enqueues it, so the CUDA events around the call time its
+    kernels, not its wrapper's time on the host (which a short launch's
+    events in a loop would show)."""
+    spacer = torch.randn((2048, 2048), device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        spacer @ spacer
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        total += start.elapsed_time(stop)
+    return total / n
 
 
 def su4_counters() -> dict:
@@ -943,6 +1000,7 @@ def main() -> int:
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(1234)
     worst_f, worst_q, worst_g, worst_fg = 0.0, 0.0, [0.0] * 3, [0.0] * 3
+    worst64 = [0.0] * 4  # at L = 100 against f64: B1 kernel, plain; B3 kernel, plain
     for P in (2, 3, 4):
         for L in (1, 7, 100):
             for M in (1000, 1 << 16):
@@ -966,27 +1024,41 @@ def main() -> int:
                 if not same_sign:
                     raise AssertionError(f"B3 {case}: quaternion sign differs from plain")
                 worst_f, worst_q = max(worst_f, err_f), max(worst_q, err_q)
+                vs64 = ""
+                if L == 100:  # kernel and plain f32 against the plain version in f64
+                    a64 = [t.double() for t in (pulses, q_t, delta, eps)]
+                    f64 = mean_fidelity_plain(*a64)
+                    q64 = propagate_mc_plain(a64[0], *a64[2:])
+                    e64 = (max_err(f_k, f64), max_err(f_p, f64), max_err(q_k, q64),
+                           max_err(q_p, q64))
+                    worst64 = [max(w, e) for w, e in zip(worst64, e64)]
+                    vs64 = (f" (vs f64: B1 kernel {e64[0]:.2e}, plain {e64[1]:.2e}; B3 kernel "
+                            f"{e64[2]:.2e}, plain {e64[3]:.2e})")
                 g = torch.randn((3, M, 4), generator=gen, device=dev)
                 e2, _, _ = check_vjp(case, pulses, delta, eps, g)
                 e1 = check_mean_fidelity_grad(case, pulses, q_t, delta, eps, gen)
                 worst_g = [max(w, e) for w, e in zip(worst_g, e2)]
                 worst_fg = [max(w, e) for w, e in zip(worst_fg, e1)]
-                print(f"  {case}: B1 err {err_f:.2e}  B3 err {err_q:.2e} "
+                print(f"  {case}: B1 err {err_f:.2e}  B3 err {err_q:.2e}{vs64} "
                       f"norm err {err_n:.2e}  B2 err {e2[0]:.2e} (vs f64: kernel "
                       f"{e2[1]:.2e}, plain {e2[2]:.2e})  B1 grad err {e1[0]:.2e} "
                       f"(vs f64: {e1[1]:.2e}, {e1[2]:.2e})")
-    # L = 400 at P = 4: B2 opts in to 59 KB of shared memory
-    pulses, _, delta, eps = random_inputs(gen, 2, 400, 4, 1000, dev)
-    g = torch.randn((2, 1000, 4), generator=gen, device=dev)
-    e2, _, _ = check_vjp("P=4 L=400 M=1000", pulses, delta, eps, g)
-    worst_g = [max(w, e) for w, e in zip(worst_g, e2)]
-    print(f"  P=4 L=400 M=1000: B2 err {e2[0]:.2e} (vs f64: kernel {e2[1]:.2e}, "
-          f"plain {e2[2]:.2e})")
-    phase("check", t0, f"18 cases + B2 at L=400; worst B1 {worst_f:.3e} (tol "
+    # P = 4 at L = 400 (25 KB of shared memory) and L = 1000 (64 KB: B2
+    # opts in past 48 KB)
+    for L in (400, 1000):
+        pulses, _, delta, eps = random_inputs(gen, 2, L, 4, 1000, dev)
+        g = torch.randn((2, 1000, 4), generator=gen, device=dev)
+        e2, _, _ = check_vjp(f"P=4 L={L} M=1000", pulses, delta, eps, g)
+        worst_g = [max(w, e) for w, e in zip(worst_g, e2)]
+        print(f"  P=4 L={L} M=1000: B2 err {e2[0]:.2e} (vs f64: kernel {e2[1]:.2e}, "
+              f"plain {e2[2]:.2e})")
+    phase("check", t0, f"18 cases + B2 at L=400, 1000; worst B1 {worst_f:.3e} (tol "
           f"{FID_TOL:.0e}), worst B3 {worst_q:.3e} (tol max(1e-5, 1e-6 L)), worst B2 "
           f"{worst_g[0]:.3e} and B1 gradient {worst_fg[0]:.3e} against plain (rtol "
           f"{GRAD_RTOL:.0e}, atol max(1e-4 / 1e-5, 2× the plain f32 error)); against "
-          f"f64: B2 kernel {worst_g[1]:.3e} / plain {worst_g[2]:.3e}, B1 gradient "
+          f"f64: B1 kernel {worst64[0]:.3e} / plain {worst64[1]:.3e} and B3 kernel "
+          f"{worst64[2]:.3e} / plain {worst64[3]:.3e} at L = 100, B2 kernel "
+          f"{worst_g[1]:.3e} / plain {worst_g[2]:.3e}, B1 gradient "
           f"kernel {worst_fg[1]:.3e} / plain {worst_fg[2]:.3e}")
 
     # 4. check-su4: B7 and B6 against their plain versions; at L = 100 the
@@ -1395,8 +1467,21 @@ def main() -> int:
                 "grape-su4": gq["launches"], "polish-su4": pq["launches"],
                 "serve-su4-variants": vq["launches"]}
 
+    lib2 = _build.load_library("su2")
     lib4, lib4b = _build.load_library("su4"), _build.load_library("su4_bwd")
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def occupancy_su2(kid, shape):
+        """B1's, B2's and B3's threads per block, resident blocks per SM
+        (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the launch's
+        waves (its blocks over the resident blocks of all SMs)."""
+        B_, L_, P_, M_ = shape
+        knum = {"B1": 1, "B2": 2, "B3": 3}[kid]
+        threads, per_sm = lib2.uqoc_su2_threads(knum), lib2.uqoc_su2_blocks_per_sm(knum, P_, L_)
+        if per_sm < 1:
+            raise AssertionError(f"{kid}: occupancy query failed ({per_sm})")
+        return {"threads_per_block": threads, "blocks_per_sm": per_sm,
+                "waves": B_ * math.ceil(M_ / threads) / (per_sm * n_sm)}
 
     def occupancy(kid, shape):
         """B4's, B6's, B5's and B8's lanes per sample at the row's shape (1:
@@ -1424,6 +1509,8 @@ def main() -> int:
         if kid in ("B4", "B5", "B6", "B8"):  # the instantiation at this shape's lanes
             occ = occupancy(kid, shape)
             fragment += f"Li{occ['lanes_per_sample']}E"
+        elif kid in ("B1", "B2", "B3"):
+            occ = occupancy_su2(kid, shape)
         r = {"name": name, "route": "cuda", "source": csrc + src,
              "replaces": f"universal_quantum_optimal_control_tpu/{where}",
              "launches": launches[path][kid], "max_abs_err": err, "ms": ms,
@@ -1442,10 +1529,13 @@ def main() -> int:
                      - mean_fidelity_plain(p_, qt_, d_, e_)).abs().max())
         if not err <= FID_TOL:
             raise AssertionError(f"B1 at the {path} shape: {err:.3e} > {FID_TOL}")
-        return row("B1", path, (B_, L_, P_, M_), err,
-                   time_ms(lambda: mean_fidelity_cuda(p_, qt_, d_, e_), iters),
-                   time_ms(lambda: mean_fidelity_plain(p_, qt_, d_, e_), 3),
-                   bound(B_, L_, P_, M_, 4 * B_, fidelity=True))
+        r = row("B1", path, (B_, L_, P_, M_), err,
+                time_ms(lambda: mean_fidelity_cuda(p_, qt_, d_, e_), iters),
+                time_ms(lambda: mean_fidelity_plain(p_, qt_, d_, e_), 3),
+                bound(B_, L_, P_, M_, 4 * B_, fidelity=True))
+        r["device_ms"] = device_ms(lambda: mean_fidelity_cuda(p_, qt_, d_, e_))
+        r["libm_samples"] = libm_samples(p_, d_, e_)
+        return r
 
     def prop_row(path, p_, d_, e_, iters):
         B_, L_, P_ = p_.shape
@@ -1453,10 +1543,13 @@ def main() -> int:
         err = float((propagate_mc_cuda(p_, d_, e_) - propagate_mc_plain(p_, d_, e_)).abs().max())
         if not err <= quat_tol(L_):
             raise AssertionError(f"B3 at the {path} shape: {err:.3e} > {quat_tol(L_)}")
-        return row("B3", path, (B_, L_, P_, M_), err,
-                   time_ms(lambda: propagate_mc_cuda(p_, d_, e_), iters),
-                   time_ms(lambda: propagate_mc_plain(p_, d_, e_), 3),
-                   bound(B_, L_, P_, M_, 16 * B_ * M_, fidelity=False))
+        r = row("B3", path, (B_, L_, P_, M_), err,
+                time_ms(lambda: propagate_mc_cuda(p_, d_, e_), iters),
+                time_ms(lambda: propagate_mc_plain(p_, d_, e_), 3),
+                bound(B_, L_, P_, M_, 16 * B_ * M_, fidelity=False))
+        r["device_ms"] = device_ms(lambda: propagate_mc_cuda(p_, d_, e_))
+        r["libm_samples"] = libm_samples(p_, d_, e_)
+        return r
 
     pulses = served["f32"]
     pt = trainers["pallas"].predict(rv_t).contiguous()
@@ -1472,14 +1565,17 @@ def main() -> int:
 
     b1_train["fwd_bwd_ms"] = time_ms(fwd_bwd(mean_fidelity_cuda), 20)
     b1_train["fwd_bwd_plain_ms"] = time_ms(fwd_bwd(mean_fidelity_plain), 3)
-    # B2 at the training shape
+    # B2 at the training shape, on B3's product as the training step runs it
     g_t = torch.randn((Bt, Mt, 4), generator=gen, device=dev)
     _, got, want = check_vjp("at the training shape", pt, dt_, et_, g_t)
+    q_pt = propagate_mc_cuda(pt, dt_, et_)
     b2_train = row("B2", "train", (Bt, Lt, Pt, Mt),
                    max(float((a - b).abs().max()) for a, b in zip(got, want)),
-                   time_ms(lambda: propagate_mc_vjp_cuda(pt, dt_, et_, g_t), 50),
+                   time_ms(lambda: propagate_mc_vjp_cuda(pt, dt_, et_, g_t, q_pt), 50),
                    time_ms(lambda: propagate_mc_vjp_plain(pt, dt_, et_, g_t), 3),
                    vjp_bound(Bt, Lt, Pt, Mt))
+    b2_train["device_ms"] = device_ms(lambda: propagate_mc_vjp_cuda(pt, dt_, et_, g_t, q_pt))
+    b2_train["libm_samples"] = libm_samples(pt, dt_, et_)
     p1 = pulses[:1].contiguous()
     d1, e1 = delta[:1, :1 << 18].contiguous(), eps[:1, :1 << 18].contiguous()
     # the SU(4) kernels, each against its plain version at the path's shape,
@@ -1613,11 +1709,19 @@ def main() -> int:
                b6_pol, b6_var, b7_var]
     for k in kernels:
         occ = k.get("occupancy")
-        print(f"  {k['name']} [{k['path']}] {k['shape']}: {k['ms']:.4f} ms, plain "
+        if occ and "waves" in occ:
+            occ_msg = (f", {occ['threads_per_block']} threads a block, {occ['blocks_per_sm']} "
+                       f"blocks per SM, {occ['waves']:.2f} waves")
+        elif occ:
+            occ_msg = (f", {occ['lanes_per_sample']} lanes a sample, {occ['blocks_per_sm']} "
+                       f"blocks per SM, {occ['warps_per_scheduler']:.2f} warps per scheduler")
+        else:
+            occ_msg = ""
+        dev_msg = f" (device {k['device_ms']:.4f} ms)" if "device_ms" in k else ""
+        print(f"  {k['name']} [{k['path']}] {k['shape']}: {k['ms']:.4f} ms{dev_msg}, plain "
               f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "
               f"err {k['max_abs_err']:.2e}, launches {k['launches']}, ptxas {k['ptxas']}"
-              + (f", {occ['lanes_per_sample']} lanes a sample, {occ['blocks_per_sm']} blocks "
-                 f"per SM, {occ['warps_per_scheduler']:.2f} warps per scheduler" if occ else ""))
+              + occ_msg)
     print(f"  B1 [train] forward + backward {b1_train['fwd_bwd_ms']:.4f} ms, plain "
           f"{b1_train['fwd_bwd_plain_ms']:.3f} ms")
     print(f"  B4 + B5 [train-su4] forward + backward through mean_fidelity_su4_cuda "

@@ -5,6 +5,13 @@ checks and their launch counters, B1's backward (B3 + B2) against autograd throu
 version, and the SU(4) mean fidelity's backward (B4 + B5) against autograd
 through its plain version.
 
+B1 sums over blocks inside its one launch and B2 over a warp's lanes by
+exchanges: two runs on the same inputs must give the same bits; B2
+on B3's product passed in or formed by B3 itself the same bits; a sample
+whose angles pass the polynomial sincos's range takes libm's, and holds;
+B1 and B3 at the longest row the card's shared memory takes, and one
+chunk past it; B1 captured in a CUDA graph, then called eagerly.
+
 B4, B6, B5 and B8 run each sample on a group of four lanes; their cases
 include M = 4096 + 3, whose last block ends inside a group of samples, and
 two launches on the same inputs must agree bit for bit.
@@ -29,6 +36,8 @@ import pytest
 import torch
 
 from universal_quantum_optimal_control_tpu_torch.core import su4
+from universal_quantum_optimal_control_tpu_torch.core.su2 import quat_fidelity
+from universal_quantum_optimal_control_tpu_torch.ops import _build
 from universal_quantum_optimal_control_tpu_torch.ops import propagate_su2 as tk
 from universal_quantum_optimal_control_tpu_torch.ops import propagate_su4 as t4
 
@@ -90,6 +99,74 @@ def test_cuda_inputs_are_checked_not_converted(card):
         tk.propagate_mc_cuda(pulses, delta.cpu(), eps)
 
 
+@pytest.mark.parametrize("P", [2, 4])
+def test_b1_and_b3_at_the_longest_row_the_card_takes(card, P):
+    """B1 and B3 opt in to more than 48 KB of shared memory, up to the
+    card's limit less their static buffers (``uqoc_su2_max_len``): at that
+    length both launch and hold to their plain versions (atol widened to
+    twice the plain f32 version's own error against f64, as at long L); one
+    chunk longer the launcher's refusal is raised, nothing is counted, and
+    the next launch is unaffected."""
+    lib = _build.load_library("su2")
+    L1, L3 = lib.uqoc_su2_max_len(1, P), lib.uqoc_su2_max_len(3, P)
+    assert 2000 < L1 <= L3
+    pulses, q_t, delta, eps = inputs(P, 64, card, B=1, L=L1)
+    f = tk.mean_fidelity_cuda(pulses, q_t, delta, eps)
+    q = tk.propagate_mc_cuda(pulses, delta, eps)
+    torch.cuda.synchronize()
+    q32 = tk.propagate_mc_plain(pulses, delta, eps)
+    q64 = tk.propagate_mc_plain(*(t.double() for t in (pulses, delta, eps)))
+    e32 = float((q32.double() - q64).abs().max())
+    torch.testing.assert_close(q, q32, atol=max(TOL, 2 * e32), rtol=0)
+    # mean_fidelity_plain's fidelity, from the products above
+    f32 = quat_fidelity(q32, q_t[:, None, :]).mean(1)
+    f64 = quat_fidelity(q64, q_t.double()[:, None, :]).mean(1)
+    torch.testing.assert_close(f, f32, atol=max(TOL, 2 * float((f32.double() - f64).abs().max())),
+                               rtol=0)
+    pulses3 = inputs(P, 64, card, B=1, L=L3)[0]
+    q3 = tk.propagate_mc_cuda(pulses3, delta, eps)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(q3.norm(dim=-1), torch.ones_like(q3[..., 0]), atol=1e-3, rtol=0)
+    counts = (tk.mean_fidelity_cuda.launches, tk.propagate_mc_cuda.launches)
+    long1 = inputs(P, 64, card, B=1, L=L1 + 4)[0]
+    long3 = inputs(P, 64, card, B=1, L=L3 + 4)[0]
+    with pytest.raises(RuntimeError, match="mean_fidelity launch failed"):
+        tk.mean_fidelity_cuda(long1, q_t, delta, eps)
+    with pytest.raises(RuntimeError, match="propagate_mc launch failed"):
+        tk.propagate_mc_cuda(long3, delta, eps)
+    assert (tk.mean_fidelity_cuda.launches, tk.propagate_mc_cuda.launches) == counts
+    assert torch.equal(tk.mean_fidelity_cuda(pulses, q_t, delta, eps), f)
+
+
+def test_b1_captured_in_a_graph_then_called_eagerly(card):
+    """B1's first call on a stream made inside a CUDA graph capture: the
+    graph zeroes its own ticket counters at each replay, and the eager calls
+    on that stream after it get counters zeroed eagerly (the capture leaves
+    none in the cache); every result the same bits as B1 on the default
+    stream."""
+    pulses, q_t, delta, eps = inputs(2, 50_000, card, B=4, L=20)
+    want = tk.mean_fidelity_cuda(pulses, q_t, delta, eps)
+    side = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = tk.mean_fidelity_cuda(pulses, q_t, delta, eps)
+    assert (pulses.device.index, side.cuda_stream) not in tk._tickets
+    with torch.cuda.stream(side):
+        eager = [tk.mean_fidelity_cuda(pulses, q_t, delta, eps) for _ in range(2)]
+    side.synchronize()
+    for got in eager:
+        assert torch.equal(got, want)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    with torch.cuda.stream(side):
+        got = tk.mean_fidelity_cuda(pulses, q_t, delta, eps)
+    side.synchronize()
+    assert torch.equal(got, want)
+
+
 def assert_vjp_close(got, want, exact=None):
     """``exact``: the plain version in f64, which widens atol to twice the
     plain f32 version's own error where that is larger."""
@@ -110,10 +187,14 @@ def test_vjp_kernel_matches_plain(card, P, M):
     assert_vjp_close(got, tk.propagate_mc_vjp_plain(pulses, delta, eps, g))
 
 
-def test_vjp_kernel_long_sequence_opts_in_to_large_shared_memory(card):
-    """L = 400 at P = 4 takes 59 KB of shared memory, above the 48 KB a
-    launch gets without the opt-in attribute."""
-    pulses, _, delta, eps = inputs(4, 1000, card, B=2, L=400)
+@pytest.mark.parametrize("L", [400, 1000])
+def test_vjp_kernel_long_sequence_opts_in_to_large_shared_memory(card, L):
+    """L = 400 at P = 4 (the longest pulse table the repo ships) takes 25 KB
+    of shared memory; L = 1000 takes 64 KB, above the 48 KB a launch gets
+    without the opt-in attribute."""
+    lib = _build.load_library("su2")
+    assert (lib.uqoc_su2_vjp_smem_bytes(L, 4) > 48 * 1024) == (L == 1000)
+    pulses, _, delta, eps = inputs(4, 1000, card, B=2, L=L)
     g = torch.randn((2, 1000, 4), generator=torch.Generator(device=card).manual_seed(9),
                     device=card)
     got = tk.propagate_mc_vjp_cuda(pulses, delta, eps, g)
@@ -123,14 +204,15 @@ def test_vjp_kernel_long_sequence_opts_in_to_large_shared_memory(card):
 
 
 def test_vjp_kernel_past_the_shared_memory_limit_raises(card):
-    """L = 1600 at P = 4 needs 231 KB, past the 227 KB an sm_90 block may
+    """L = 4000 at P = 4 needs 256 KB, past the 227 KB an sm_90 block may
     opt in to: the launcher's error is raised, nothing is launched or
     counted, and the next launch is unaffected."""
-    pulses, _, delta, eps = inputs(4, 64, card, B=1, L=1600)
+    assert _build.load_library("su2").uqoc_su2_vjp_smem_bytes(4000, 4) > 232448
+    pulses, _, delta, eps = inputs(4, 64, card, B=1, L=4000)
     g = torch.zeros((1, 64, 4), device=card)
     before = tk.propagate_mc_vjp_cuda.launches
     with pytest.raises(RuntimeError, match="propagate_mc_vjp launch failed"):
-        tk.propagate_mc_vjp_cuda(pulses, delta, eps, g)
+        tk.propagate_mc_vjp_cuda(pulses, delta, eps, g, torch.zeros_like(g))
     assert tk.propagate_mc_vjp_cuda.launches == before
     pulses, _, delta, eps = inputs(4, 64, card, B=1)
     tk.propagate_mc_vjp_cuda(pulses, delta, eps, g)
@@ -164,6 +246,70 @@ def test_vjp_counts_one_launch_and_checks_inputs(card):
         tk.propagate_mc_vjp_cuda(pulses, delta, eps, g.double())
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
         tk.propagate_mc_vjp_cuda(pulses, delta, eps, g.cpu())
+
+
+@pytest.mark.parametrize("P", [2, 3, 4])
+def test_vjp_kernel_with_and_without_the_product_is_the_same(card, P):
+    """B2 on B3's product passed in, and B2 forming it through B3 itself
+    (one B3 launch, counted there): the same bits."""
+    pulses, _, delta, eps = inputs(P, 1000, card)
+    g = torch.randn((3, 1000, 4), generator=torch.Generator(device=card).manual_seed(P),
+                    device=card)
+    q = tk.propagate_mc_cuda(pulses, delta, eps)
+    counts = (tk.propagate_mc_cuda.launches, tk.propagate_mc_vjp_cuda.launches)
+    without = tk.propagate_mc_vjp_cuda(pulses, delta, eps, g)
+    assert (tk.propagate_mc_cuda.launches, tk.propagate_mc_vjp_cuda.launches) == \
+        (counts[0] + 1, counts[1] + 1)
+    with_q = tk.propagate_mc_vjp_cuda(pulses, delta, eps, g, q)
+    for a, b in zip(without, with_q):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="q must be"):
+        tk.propagate_mc_vjp_cuda(pulses, delta, eps, g, q[:, :10].contiguous())
+
+
+@pytest.mark.parametrize("P", [2, 4])
+def test_b1_and_b2_give_the_same_bits_on_two_runs(card, P):
+    """B1's one-launch sum over blocks (whichever block draws the last
+    ticket sums in block order) and B2's warp sums: the same inputs give the
+    same bits, at a shape of many blocks per target."""
+    pulses, q_t, delta, eps = inputs(P, 50_000, card, B=4, L=20)
+    g = torch.randn((4, 50_000, 4), generator=torch.Generator(device=card).manual_seed(1),
+                    device=card)
+    first = (tk.mean_fidelity_cuda(pulses, q_t, delta, eps),
+             *tk.propagate_mc_vjp_cuda(pulses, delta, eps, g))
+    second = (tk.mean_fidelity_cuda(pulses, q_t, delta, eps),
+              *tk.propagate_mc_vjp_cuda(pulses, delta, eps, g))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("P", [2, 4])
+def test_kernels_take_libm_past_the_polynomials_range(card, P):
+    """A segment of τ = 2400 and samples at δ = ε = 0: the half angle τ/2 =
+    1200 (Ω = 1, Δ = 0 there at P = 4) is past the polynomial sincos's range,
+    so these samples take libm's sincosf; the angle is the same f32 number
+    in the plain version, so B3 and B1 hold to it at the usual tolerances,
+    and B2 too where its gradients, which grow with τ, allow twice the plain
+    f32 version's own error."""
+    lib = _build.load_library("su2")
+    assert 1200.0 > lib.uqoc_su2_poly_max()
+    pulses, q_t, delta, eps = inputs(P, 256, card, L=7)
+    pulses[:, 3, -1] = 2400.0
+    if P == 4:
+        pulses[:, 3, 1:3] = torch.tensor([1.0, 0.0], device=card)
+    delta.zero_()
+    eps.zero_()
+    torch.testing.assert_close(tk.propagate_mc_cuda(pulses, delta, eps),
+                               tk.propagate_mc_plain(pulses, delta, eps), atol=TOL, rtol=0)
+    torch.testing.assert_close(tk.mean_fidelity_cuda(pulses, q_t, delta, eps),
+                               tk.mean_fidelity_plain(pulses, q_t, delta, eps), atol=TOL, rtol=0)
+    g = torch.randn((3, 256, 4), generator=torch.Generator(device=card).manual_seed(2),
+                    device=card)
+    # dε and dτ scale with τ = 2400: atol also allows twice the plain f32
+    # version's own error against f64, as at long L
+    exact = tk.propagate_mc_vjp_plain(*(t.double() for t in (pulses, delta, eps, g)))
+    assert_vjp_close(tk.propagate_mc_vjp_cuda(pulses, delta, eps, g),
+                     tk.propagate_mc_vjp_plain(pulses, delta, eps, g), exact)
 
 
 @pytest.mark.parametrize("P", [2, 4])

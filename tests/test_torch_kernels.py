@@ -115,6 +115,25 @@ def test_b2_plain_matches_pallas_bwd_kernel_and_xla_vjp(P, M):
     assert_grads_close([x.numpy() for x in t], j_xla, names)
 
 
+@pytest.mark.parametrize("P,M", CASES)
+def test_b2_with_the_product_matches_pallas_bwd_kernel(P, M):
+    """B2 handed B3's product, as a caller that holds it passes it (here the
+    plain propagator's): the port against the JAX ``_bwd_kernel`` in
+    interpret mode on the same numpy-seeded inputs, at the tolerances
+    above; the same values as without the product."""
+    pulses, _, delta, eps = kernel_inputs(P, M, seed=5)
+    g = np.random.default_rng(7 * P + M).standard_normal((2, M, 4)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        j_kernel = jvjp(*(jnp.asarray(a) for a in (pulses, delta, eps, g)))
+    args = [torch.from_numpy(a) for a in (pulses, delta, eps, g)]
+    q = tk.propagate_mc_plain(*args[:3])
+    t = tk.propagate_mc_vjp_cuda(*args, q)
+    assert [tuple(x.shape) for x in t] == [(2, 8, P), (2, M), (2, M)]
+    assert_grads_close([x.numpy() for x in t], j_kernel, ("pulses", "delta", "eps"))
+    for a, b in zip(t, tk.propagate_mc_vjp_cuda(*args)):
+        assert torch.equal(a, b)
+
+
 # Ω ≤ 0 with Δ + δ = 0 exactly in the first segment: the axis norm is 0
 DEGENERATE = (np.asarray([[[0.3, -0.1, 0.3, 0.4], [1.0, 0.8, -0.2, 0.3]]], np.float32),
               np.asarray([[-0.3, 0.5]], np.float32), np.asarray([[0.01, 0.02]], np.float32))
@@ -176,15 +195,21 @@ def test_kernel_input_checks():
         tk._check(pulses, delta[:1].contiguous(), eps)
     with pytest.raises(ValueError, match="q_target"):
         tk._check(pulses, delta, eps, q_t[:1].contiguous())
-    with pytest.raises(ValueError, match="shared-memory"):
-        tk._check(torch.zeros(2, 4000, 4), delta, eps)
-    # B2: g is checked; B2's launcher opts in to more shared memory than the
-    # B1/B3 row limit, and the card refuses it past its own limit
+    # the row's length is the card's to refuse: every launcher opts in to
+    # more than 48 KB of shared memory and raises past the card's limit
+    # (tests/test_torch_gpu.py holds B1 and B2 at that limit)
+    assert tk._check(torch.zeros(2, 4000, 4), delta, eps) == (2, 4000, 4, 64)
+    # B2: g and B3's product q are checked
     g = torch.zeros(2, 64, 4)
     assert tk._check(torch.zeros(2, 400, 4), delta, eps, g=g) == (2, 400, 4, 64)
     assert tk._check(torch.zeros(2, 4000, 4), delta, eps, g=g) == (2, 4000, 4, 64)
+    assert tk._check(pulses, delta, eps, g=g, q=g) == (2, 8, 3, 64)
     with pytest.raises(ValueError, match="g must be"):
         tk._check(pulses, delta, eps, g=g[:, :10].contiguous())
+    with pytest.raises(ValueError, match="q must be"):
+        tk._check(pulses, delta, eps, g=g, q=g[:, :10].contiguous())
+    with pytest.raises(TypeError, match="float32"):
+        tk._check(pulses, delta, eps, g=g, q=g.double())
 
 
 def test_build_is_one_nvcc_call_into_an_ignored_directory():

@@ -3,8 +3,8 @@ bound by ctypes.
 
 Each source under ``ops/csrc/`` (``propagate_su2.cu``: B1, B2, B3;
 ``propagate_su4.cu``: B4, B6, B7; ``propagate_su4_bwd.cu``: B5, B8; all include
-``common.cuh``, the SU(4) two ``su4.cuh``) is compiled for ``sm_90a`` into
-a shared library with a plain C interface,
+``common.cuh``, the SU(2) one ``su2.cuh``, the SU(4) two ``su4.cuh``) is
+compiled for ``sm_90a`` into a shared library with a plain C interface,
 ``build/torch_kernels/libuqoc_<name>.so`` at the root of the checkout.  No
 source includes a PyTorch header, so a build takes seconds, and the
 ``nvcc`` calls of all stale libraries run at once.  A build runs at first
@@ -104,16 +104,27 @@ def build_libraries(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 
 
 def _declare_su2(lib: ctypes.CDLL) -> None:
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.uqoc_su2_num_blocks.argtypes = [i64]
-    lib.uqoc_su2_num_blocks.restype = i32
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    for name in ("uqoc_su2_num_blocks", "uqoc_su2_vjp_num_blocks"):
+        getattr(lib, name).argtypes = [i64]
+        getattr(lib, name).restype = i32
+    lib.uqoc_su2_threads.argtypes = [i32]
+    lib.uqoc_su2_threads.restype = i32
+    lib.uqoc_su2_blocks_per_sm.argtypes = [i32, i32, i32]
+    lib.uqoc_su2_blocks_per_sm.restype = i32
+    lib.uqoc_su2_max_len.argtypes = [i32, i32]
+    lib.uqoc_su2_max_len.restype = i32
+    lib.uqoc_su2_vjp_smem_bytes.argtypes = [i32, i32]
+    lib.uqoc_su2_vjp_smem_bytes.restype = i64
+    lib.uqoc_su2_poly_max.argtypes = []
+    lib.uqoc_su2_poly_max.restype = f32
     lib.uqoc_su2_propagate_mc.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i64, ptr]
     lib.uqoc_su2_propagate_mc.restype = i32
     lib.uqoc_su2_mean_fidelity.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i64, ptr]
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i64, ptr]
     lib.uqoc_su2_mean_fidelity.restype = i32
     lib.uqoc_su2_propagate_mc_vjp.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i64, ptr]
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i64, ptr]
     lib.uqoc_su2_propagate_mc_vjp.restype = i32
 
 

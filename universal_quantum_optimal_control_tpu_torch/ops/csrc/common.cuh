@@ -6,14 +6,20 @@
 //
 // Mean, pass 1 (inside the fidelity kernel): block_sum adds each block's
 // samples in a fixed order (warp shuffles, then the warps' sums), and thread
-// 0 writes one partial per block.  Pass 2: reduce_partials_kernel sums a
-// target's partials in double, in a fixed order, and divides by M.
+// 0 writes one partial per block.  Pass 2: mean_of_partials sums a target's
+// partials in double, in a fixed order, and divides by M.
 //
-// Pulse cotangents, pass 1 (inside the sweep): warp_sum per segment and
-// channel into the warp's slot of a shared [warps][L * P] buffer, then a
-// fixed-order sum over the warps into one partial per block.  Pass 2:
-// reduce_columns_kernel sums a target's block partials in double, in block
-// order.  No atomics anywhere, so every result is the same from run to run.
+// Pulse cotangents, pass 1 (inside the sweep): a per-warp sum into the
+// warp's slot of a shared [warps][L * P] buffer, then a fixed-order sum over
+// the warps into one partial per block.  Pass 2: column_sum sums a target's
+// block partials in double, in block order.
+//
+// Pass 2 runs as a kernel of its own after pass 1 (reduce_partials_kernel,
+// reduce_columns_kernel), or inside pass 1's launch (B1): every block
+// writes its partials, then draws a ticket from a per-target counter
+// (last_block), and the block that draws the last one runs pass 2.  The
+// ticket decides only which block sums, not the order of the sum, and no
+// atomic adds a value, so every result is the same from run to run.
 
 #pragma once
 
@@ -76,35 +82,60 @@ __device__ __forceinline__ float block_sum(float f) {
   return f;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Pass 2 of the mean: grid (B); out[b] = sum of partials[b, :n] / M, summed
-// in double.
+// Pass 2 of the mean, by one block of kThreads threads: *out = the sum of
+// partials[:n] / M, summed in double in a fixed order.  Loads bypass L1: the
+// partials may come from other blocks of the same launch.
 template <int kThreads>
-__global__ void __launch_bounds__(kThreads)
-reduce_partials_kernel(const float* __restrict__ partials, int n,
-                       float* __restrict__ out, int64_t M) {
+__device__ __forceinline__ void mean_of_partials(const float* partials, int n, float* out,
+                                                 int64_t M) {
   __shared__ double sums[kThreads];
-  const int b = blockIdx.x;
   double s = 0.0;
-  for (int j = threadIdx.x; j < n; j += kThreads)
-    s += partials[static_cast<int64_t>(b) * n + j];
+  for (int j = threadIdx.x; j < n; j += kThreads) s += __ldcg(partials + j);
   sums[threadIdx.x] = s;
   __syncthreads();
   for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
     if (threadIdx.x < stride) sums[threadIdx.x] += sums[threadIdx.x + stride];
     __syncthreads();
   }
-  if (threadIdx.x == 0) out[b] = static_cast<float>(sums[0] / M);
+  if (threadIdx.x == 0) *out = static_cast<float>(sums[0] / M);
 }
 
-// Pass 2 of the pulse cotangents: grid (ceil(lp / kThreads), B);
-// out[b, j] = the sum of partials[b, :, j] over the nblocks blocks, in
-// double, in block order.
+// Pass 2 of the pulse cotangents for column j: the sum of partials[:, j]
+// over the nblocks blocks' rows of lp, in double, in block order.
+__device__ __forceinline__ float column_sum(const float* partials, int nblocks, int lp, int j) {
+  double s = 0.0;
+  for (int x = 0; x < nblocks; ++x) s += __ldcg(partials + static_cast<int64_t>(x) * lp + j);
+  return static_cast<float>(s);
+}
+
+// Called by every thread of a block after the block wrote its partials:
+// true in every thread of the one block of the target's gridDim.x that
+// draws the last ticket from the target's counter, which it sets back to 0
+// for the next launch (the caller zeroes the counters once).
+__device__ __forceinline__ bool last_block(unsigned int* ticket) {
+  __shared__ bool last;
+  __threadfence();  // this block's partials, before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    if (last) *ticket = 0u;
+  }
+  __syncthreads();
+  return last;
+}
+
+// Pass 2 of the mean as a kernel: grid (B); out[b] = the mean of
+// partials[b, :n].
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads)
+reduce_partials_kernel(const float* __restrict__ partials, int n,
+                       float* __restrict__ out, int64_t M) {
+  const int b = blockIdx.x;
+  mean_of_partials<kThreads>(partials + static_cast<int64_t>(b) * n, n, out + b, M);
+}
+
+// Pass 2 of the pulse cotangents as a kernel: grid (ceil(lp / kThreads), B);
+// out[b, j] = the sum of partials[b, :, j] over the nblocks blocks.
 template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
 reduce_columns_kernel(const float* __restrict__ partials, int nblocks, int lp,
@@ -112,10 +143,8 @@ reduce_columns_kernel(const float* __restrict__ partials, int nblocks, int lp,
   const int b = blockIdx.y;
   const int j = blockIdx.x * kThreads + threadIdx.x;
   if (j >= lp) return;
-  const float* src = partials + static_cast<int64_t>(b) * nblocks * lp + j;
-  double s = 0.0;
-  for (int x = 0; x < nblocks; ++x) s += src[static_cast<int64_t>(x) * lp];
-  out[static_cast<int64_t>(b) * lp + j] = static_cast<float>(s);
+  out[static_cast<int64_t>(b) * lp + j] =
+      column_sum(partials + static_cast<int64_t>(b) * nblocks * lp, nblocks, lp, j);
 }
 
 }  // namespace uqoc

@@ -13,7 +13,8 @@ Three hand-written CUDA kernels (``csrc/propagate_su2.cu``, built by
   inputs: its backward re-runs B3 for the per-sample quaternions, seeds
   the cotangent analytically and runs B2, as ``_mf_bwd`` does.
 * :func:`propagate_mc_vjp_cuda` (B2, replaces ``_bwd_kernel``): the VJP of
-  B3, cotangent ``(B, M, 4)`` → ``(dpulses (B, L, P), dδ (B, M), dε (B, M))``.
+  B3, cotangent ``(B, M, 4)`` → ``(dpulses (B, L, P), dδ (B, M), dε (B, M))``,
+  swept from B3's per-sample product (the caller's, or one B3 launch).
 
 P ∈ {2, 3, 4}: ``(φ, τ)``, ``(φ, Ω, τ)`` or ``(φ, Ω, Δ, τ)``.  All tensors
 are f32.  On CPU tensors a wrapper computes its plain PyTorch version
@@ -25,7 +26,7 @@ counts too).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -43,11 +44,11 @@ __all__ = [
     "propagate_mc_vjp_plain",
 ]
 
-# dynamic shared memory a block may use without an opt-in attribute, less
-# room for the kernels' static reduction buffer (B1 and B3; B2's launcher
-# opts in to more and reports the card's refusal past its limit)
-_MAX_ROW_BYTES = 47 * 1024
 _MAX_TARGETS = 65535  # grid.y limit
+
+# per (device, stream): B1's per-target ticket counters, zeroed eagerly and
+# zero between launches (each launch sets back what it drew)
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def propagate_mc_plain(pulses: torch.Tensor, delta: torch.Tensor,
@@ -86,20 +87,34 @@ def _route(*tensors: torch.Tensor) -> str:
         f"{sorted(str(t.device) for t in tensors)}")
 
 
-def _row_floats(L: int, P: int) -> int:
-    return L * (3 if P == 2 else P + 1)
+def _ticket_counters(dev: torch.device, stream: int, B: int) -> torch.Tensor:
+    """B1's counters for a launch on ``stream``.  Under CUDA graph capture a
+    fresh zeroed buffer: the graph replays its zeroing before each launch,
+    and the cache keeps only counters that were zeroed when it filled."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros((B,), dtype=torch.int32, device=dev)
+    key = (dev.index, stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < B:
+        t = torch.zeros((max(B, 256),), dtype=torch.int32, device=dev)
+        _tickets[key] = t
+    return t
 
 
 def _check(pulses: torch.Tensor, delta: torch.Tensor, eps: torch.Tensor,
            q_target: Optional[torch.Tensor] = None,
-           g: Optional[torch.Tensor] = None) -> Tuple[int, int, int, int]:
-    """Validate the kernels' inputs; ``g`` (B2's cotangent) skips the B1/B3
-    shared-memory limit."""
+           g: Optional[torch.Tensor] = None,
+           q: Optional[torch.Tensor] = None) -> Tuple[int, int, int, int]:
+    """Validate the kernels' inputs; ``g`` is B2's cotangent, ``q`` its
+    product input.  A row longer than the card's shared memory takes is
+    refused by the launcher (``uqoc_su2_max_len``), which raises."""
     named = {"pulses": pulses, "delta": delta, "eps": eps}
     if q_target is not None:
         named["q_target"] = q_target
     if g is not None:
         named["g"] = g
+    if q is not None:
+        named["q"] = q
     for name, t in named.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -119,12 +134,11 @@ def _check(pulses: torch.Tensor, delta: torch.Tensor, eps: torch.Tensor,
         raise ValueError(f"q_target must be ({B}, 4), got {tuple(q_target.shape)}")
     if g is not None and tuple(g.shape) != (B, M, 4):
         raise ValueError(f"g must be ({B}, {M}, 4), got {tuple(g.shape)}")
+    if q is not None and tuple(q.shape) != (B, M, 4):
+        raise ValueError(f"q must be ({B}, {M}, 4), got {tuple(q.shape)}")
     if not (1 <= B <= _MAX_TARGETS and L >= 1 and M >= 1):
         raise ValueError(f"need 1 <= B <= {_MAX_TARGETS}, L >= 1, M >= 1; "
                          f"got B={B}, L={L}, M={M}")
-    if g is None and 4 * _row_floats(L, P) > _MAX_ROW_BYTES:
-        raise ValueError(f"L={L} at P={P} exceeds the kernels' shared-memory "
-                         f"pulse row ({_MAX_ROW_BYTES} bytes)")
     return B, L, P, M
 
 
@@ -150,20 +164,22 @@ def _launch_mean_fidelity(pulses, q_target, delta, eps) -> torch.Tensor:
     out = torch.empty((B,), dtype=torch.float32, device=pulses.device)
     with torch.cuda.device(pulses.device):
         stream = torch.cuda.current_stream().cuda_stream
+        tickets = _ticket_counters(pulses.device, stream, B)
         err = lib.uqoc_su2_mean_fidelity(
             pulses.data_ptr(), q_target.data_ptr(), delta.data_ptr(),
-            eps.data_ptr(), partials.data_ptr(), out.data_ptr(), B, L, P, M,
-            stream)
+            eps.data_ptr(), partials.data_ptr(), tickets.data_ptr(), out.data_ptr(),
+            B, L, P, M, stream)
     raise_on(lib, err, "mean_fidelity")
     mean_fidelity_cuda.launches += 1
     return out
 
 
-def _launch_vjp(pulses, delta, eps, g):
-    B, L, P, M = _check(pulses, delta, eps, g=g)
+def _launch_vjp(pulses, delta, eps, g, q):
+    """B2 on B3's product ``q`` of the same inputs."""
+    B, L, P, M = _check(pulses, delta, eps, g=g, q=q)
     lib = load_library("su2")
     dev = pulses.device
-    partials = torch.empty((B, lib.uqoc_su2_num_blocks(M), L * P),
+    partials = torch.empty((B, lib.uqoc_su2_vjp_num_blocks(M), L * P),
                            dtype=torch.float32, device=dev)
     dpulses = torch.empty((B, L, P), dtype=torch.float32, device=dev)
     ddelta = torch.empty((B, M), dtype=torch.float32, device=dev)
@@ -172,7 +188,7 @@ def _launch_vjp(pulses, delta, eps, g):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.uqoc_su2_propagate_mc_vjp(
             pulses.data_ptr(), delta.data_ptr(), eps.data_ptr(), g.data_ptr(),
-            partials.data_ptr(), dpulses.data_ptr(), ddelta.data_ptr(),
+            q.data_ptr(), partials.data_ptr(), dpulses.data_ptr(), ddelta.data_ptr(),
             deps.data_ptr(), B, L, P, M, stream)
     raise_on(lib, err, "propagate_mc_vjp")
     propagate_mc_vjp_cuda.launches += 1
@@ -184,18 +200,22 @@ def _needed(ctx, *grads):
 
 
 class _PropagateMC(torch.autograd.Function):
-    """B3 forward, B2 backward (``propagate_mc_pallas``'s custom VJP)."""
+    """B3 forward, B2 backward (``propagate_mc_pallas``'s custom VJP); the
+    forward's product is kept for the backward only where a gradient is
+    needed."""
 
     @staticmethod
     def forward(ctx, pulses, delta, eps):
-        ctx.save_for_backward(pulses, delta, eps)
-        return _launch_propagate_mc(pulses, delta, eps)
+        q = _launch_propagate_mc(pulses, delta, eps)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(pulses, delta, eps, q)
+        return q
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        pulses, delta, eps = ctx.saved_tensors
-        return _needed(ctx, *_launch_vjp(pulses, delta, eps, g.contiguous()))
+        pulses, delta, eps, q = ctx.saved_tensors
+        return _needed(ctx, *_launch_vjp(pulses, delta, eps, g.contiguous(), q))
 
 
 class _MeanFidelity(torch.autograd.Function):
@@ -204,9 +224,9 @@ class _MeanFidelity(torch.autograd.Function):
 
     ḡ is a per-target ``(B,)`` cotangent.  The TPU backward switches B3 and
     B2 to a sign-free half-angle sincos, valid only because every parity
-    sign cancels there (``ROADMAP.md`` §C, the sign trap).  The CUDA B3 and
-    B2 use the accurate, sign-resolved ``sincosf``, so the backward reuses
-    B3 as it is and there is no sign-free variant to port.
+    sign cancels there (``ROADMAP.md`` §C, the sign trap).  The CUDA B3
+    resolves every sign (``csrc/su2.cuh``), so the backward reuses B3 as it
+    is, and B2 sweeps from that product.
     """
 
     @staticmethod
@@ -224,7 +244,7 @@ class _MeanFidelity(torch.autograd.Function):
         # F_b = mean_m (4·inner² + 2)/6  ⇒  dF_b/dq = (8/6)·inner·q_t / M
         scale = (8.0 / 6.0) * inner * gbar[:, None] / M        # (B, M)
         g_q = (scale[..., None] * q_target[:, None, :]).contiguous()
-        d_pulses, d_delta, d_eps = _launch_vjp(pulses, delta, eps, g_q)
+        d_pulses, d_delta, d_eps = _launch_vjp(pulses, delta, eps, g_q, q)
         d_qt = torch.sum(scale[..., None] * q, dim=1)          # (B, 4)
         return _needed(ctx, d_pulses, d_qt, d_delta, d_eps)
 
@@ -252,12 +272,21 @@ mean_fidelity_cuda.launches = 0
 
 
 def propagate_mc_vjp_cuda(pulses: torch.Tensor, delta: torch.Tensor,
-                          eps: torch.Tensor, g: torch.Tensor
+                          eps: torch.Tensor, g: torch.Tensor,
+                          q: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """B2: VJP of the MC propagator, ``(dpulses, dδ, dε)``."""
-    if _route(pulses, delta, eps, g) == "cpu":
+    """B2: VJP of the MC propagator, ``(dpulses, dδ, dε)``.
+
+    ``q``: B3's product ``(B, M, 4)`` of the same inputs, where the caller
+    holds it; else B3 forms it first (one launch, counted in
+    ``propagate_mc_cuda.launches``).  The plain version needs no ``q``.
+    """
+    tensors = (pulses, delta, eps, g) + (() if q is None else (q,))
+    if _route(*tensors) == "cpu":
         return propagate_mc_vjp_plain(pulses, delta, eps, g)
-    return _launch_vjp(pulses, delta, eps, g)
+    if q is None:
+        q = _launch_propagate_mc(pulses, delta, eps)
+    return _launch_vjp(pulses, delta, eps, g, q)
 
 
 propagate_mc_vjp_cuda.launches = 0
