@@ -20,8 +20,8 @@ Fifteen phases, each printing its own line with its seconds:
    its plain version;
 4. check-su4: kernels B7 (SU(4) per-sample product) and B6 (SU(4) mean
    fidelity) against their plain versions, P ∈ {2, 3, 4 (drive2)},
-   L ∈ {1, 7, 100}, M ∈ {200, 2¹⁴}; at L = 100 also against the plain
-   version in f64;
+   L ∈ {1, 7, 100}, M ∈ {200, 2¹⁴} (B7's plans K = 1, 4 and 16 chunks a
+   sample); at L = 100 also against the plain version in f64;
 5. check-su4-train: kernels B4 (B6 with each sample's product), B5 (the
    product-seeded reverse sweep) and B8 (the sweep that forms the product
    itself) against their plain versions, B5 and B8 under a non-uniform
@@ -72,14 +72,16 @@ Fifteen phases, each printing its own line with its seconds:
     ``cz_drive2`` E[F](σ_δ) sweeps (``demo/app.py``) through B7 against
     the JAX package's CPU sweep;
 15. time: each kernel at the shape of each path that runs it, with CUDA
-    events (for B1, B2 and B3 also the device's time of the kernels alone,
+    events (for B1, B2, B3 and B7 also the device's time of the kernels alone,
     each call queued behind a long one: their wrappers' host time exceeds a
     short launch's), beside its plain version, its bound and its ptxas registers,
     spills and stack, and the resident blocks per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, exported by the
     libraries) with, for B1, B2 and B3, the threads per block and the
     launch's waves, for the lane-group kernels B4, B6, B5 and B8 the lanes
-    per sample and the launch's warps per warp scheduler;
+    per sample and the launch's warps per warp scheduler, for B7 its plan
+    (chunks per sample), blocks, blocks a SM, waves and warps per
+    scheduler;
     one row of the ``kernels`` line per kernel and path, with that path's
     launches (B4 and B5 at both the polish's and the training shape).
 
@@ -580,11 +582,12 @@ def step_profile(step, n: int, keys=(), per_call: int = 1) -> dict:
 
 def device_ms(fn, n: int = 20) -> float:
     """The device's time per call of ``fn``'s kernels alone: each call is
-    queued behind a 2048² matrix product that keeps the stream busy while
-    the host enqueues it, so the CUDA events around the call time its
-    kernels, not its wrapper's time on the host (which a short launch's
-    events in a loop would show)."""
-    spacer = torch.randn((2048, 2048), device="cuda")
+    queued behind a 4096² matrix product (~3 ms on an H100) that keeps the
+    stream busy while the host enqueues it, so the CUDA events around the
+    call time its kernels, not its wrapper's time on the host (which a
+    short launch's events in a loop would show, and which a 2048² product
+    did not always cover)."""
+    spacer = torch.randn((4096, 4096), device="cuda")
     fn()
     torch.cuda.synchronize()
     total = 0.0
@@ -966,7 +969,7 @@ def main() -> int:
     from universal_quantum_optimal_control_tpu_torch.ops.propagate_su4 import (
         mean_fidelity_su4_cuda, mean_fidelity_su4_plain, mean_fidelity_su4_with_product_cuda,
         mean_fidelity_su4_with_product_plain, propagate_su4_mc_cuda, propagate_su4_mc_plain,
-        su4_objective_vjp_cuda, su4_objective_vjp_from_product_cuda,
+        propagate_su4_plan, su4_objective_vjp_cuda, su4_objective_vjp_from_product_cuda,
         su4_objective_vjp_from_product_plain, su4_objective_vjp_plain)
     from universal_quantum_optimal_control_tpu_torch.optimizers import named_two_qubit_targets
     from universal_quantum_optimal_control_tpu_torch.training import SU4System
@@ -1090,8 +1093,8 @@ def main() -> int:
                 worst_u, worst_f4 = max(worst_u, err_u), max(worst_f4, err_f)
                 vs64 = "" if e64_u is None else (f"; plain vs f64: U {e64_u:.2e}, "
                                                  f"F {e64_f:.2e}")
-                print(f"  {case}: B7 err {err_u:.2e} (tol {tol_u:.1e})  B6 err {err_f:.2e} "
-                      f"(tol {tol_f:.1e}){vs64}")
+                print(f"  {case}: B7 err {err_u:.2e} (tol {tol_u:.1e}, plan "
+                      f"{propagate_su4_plan(3, M, L)})  B6 err {err_f:.2e} (tol {tol_f:.1e}){vs64}")
     phase("check-su4", t0, f"18 cases; worst B7 {worst_u:.3e}, worst B6 {worst_f4:.3e} "
           f"against plain (tol {SU4_PROD_TOL:.0e} / {SU4_FID_TOL[2]:.0e}, "
           f"{SU4_FID_TOL[4]:.0e} drive2; at L = 100 max of those and 2× the plain f32 "
@@ -1502,6 +1505,20 @@ def main() -> int:
         return {"lanes_per_sample": lanes, "blocks_per_sm": per_sm,
                 "warps_per_scheduler": B_ * blocks * SU4_WARPS_PER_BLOCK / (4 * n_sm)}
 
+    def occupancy_b7(shape):
+        """B7's plan at the row's shape: K chunks of a sample's segments, one
+        thread each (1: one thread per sample), the launch's blocks,
+        resident blocks per SM, blocks a SM, waves and warps per scheduler."""
+        B_, L_, P_, M_ = shape
+        K = lib4.uqoc_su4_prop_chunks(B_, M_, L_)
+        per_sm = lib4.uqoc_su4_prop_blocks_per_sm(K, P_, L_)
+        if per_sm < 1:
+            raise AssertionError(f"B7: occupancy query failed ({per_sm})")
+        blocks = B_ * math.ceil(M_ / (SU4_WARPS_PER_BLOCK * 32 // K))
+        return {"chunks": K, "blocks": blocks, "blocks_per_sm": per_sm,
+                "blocks_a_sm": blocks / n_sm, "waves": blocks / (per_sm * n_sm),
+                "warps_per_scheduler": blocks * SU4_WARPS_PER_BLOCK / (4 * n_sm)}
+
     def row(kid, path, shape, err, ms, plain_ms, bound_):
         name, where, src = names[kid]
         fragment = entry[kid].format(shape[2])
@@ -1509,6 +1526,10 @@ def main() -> int:
         if kid in ("B4", "B5", "B6", "B8"):  # the instantiation at this shape's lanes
             occ = occupancy(kid, shape)
             fragment += f"Li{occ['lanes_per_sample']}E"
+        elif kid == "B7":  # the chunked kernel past plan K = 1
+            occ = occupancy_b7(shape)
+            if occ["chunks"] > 1:
+                fragment = f"propagate_su4_chunks_kernelILi{shape[2]}E"
         elif kid in ("B1", "B2", "B3"):
             occ = occupancy_su2(kid, shape)
         r = {"name": name, "route": "cuda", "source": csrc + src,
@@ -1605,10 +1626,13 @@ def main() -> int:
         err = max_err(k, p_)
         if not err <= tol:
             raise AssertionError(f"B7 at the {path} shape: {err:.3e} > {tol:.2e}")
-        return row("B7", path, su4_shape(in_), err,
-                   time_ms(lambda: propagate_su4_mc_cuda(*in_, sys_), 20),
-                   time_ms(lambda: propagate_su4_mc_plain(*in_, sys_), 2),
-                   su4_bound(*su4_shape(in_), fidelity=False))
+        r = row("B7", path, su4_shape(in_), err,
+                time_ms(lambda: propagate_su4_mc_cuda(*in_, sys_), 20),
+                time_ms(lambda: propagate_su4_mc_plain(*in_, sys_), 2),
+                su4_bound(*su4_shape(in_), fidelity=False))
+        # the wrapper's host time exceeds the launch at the GRAPE curve's shape
+        r["device_ms"] = device_ms(lambda: propagate_su4_mc_cuda(*in_, sys_))
+        return r
 
     def su4_train_rows(path, in_, gbar, sys_):
         """B4 and B5 on in_ under the per-target cotangent gbar; returns the
@@ -1709,7 +1733,12 @@ def main() -> int:
                b6_pol, b6_var, b7_var]
     for k in kernels:
         occ = k.get("occupancy")
-        if occ and "waves" in occ:
+        if occ and "chunks" in occ:
+            occ_msg = (f", plan K = {occ['chunks']}, {occ['blocks']} blocks, "
+                       f"{occ['blocks_a_sm']:.2f} a SM, {occ['blocks_per_sm']} resident per SM, "
+                       f"{occ['waves']:.2f} waves, {occ['warps_per_scheduler']:.2f} warps per "
+                       f"scheduler")
+        elif occ and "waves" in occ:
             occ_msg = (f", {occ['threads_per_block']} threads a block, {occ['blocks_per_sm']} "
                        f"blocks per SM, {occ['waves']:.2f} waves")
         elif occ:

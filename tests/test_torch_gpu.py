@@ -543,3 +543,74 @@ def test_su4_launches_take_both_paths(card):
     for lanes in (fwd.uqoc_su4_lanes, bwd.uqoc_su4_vjp_lanes):
         assert lanes(3, 200) > 1 and lanes(3, 4099) > 1
         assert lanes(1, full) == 1 and lanes(3, 8449) == 1
+
+
+# B7's plans (K chunks of a sample's segments, one thread each): every
+# branch against the plain version, at max(2e-5, twice the plain f32
+# version's own error against f64) as chip_smoke.py holds B7 at L = 100;
+# K = 1 is one thread per sample; the cases take M = 1, M = 45 (a block's
+# last samples past M), L = 1 and L < K (chunks with no segment).
+B7_PLANS = [1, 2, 4, 8, 16, 32]
+
+
+def b7_tol(pulses, d1, d2, ep, sys_):
+    plain = t4.propagate_su4_mc_plain(pulses, d1, d2, ep, sys_)
+    exact = t4.propagate_su4_mc_plain(*(t.double() for t in (pulses, d1, d2, ep)), sys_)
+    err = max(float((a.double() - b).abs().max()) for a, b in zip(plain, exact))
+    return plain, max(2e-5, 2 * err)
+
+
+@pytest.mark.parametrize("chunks", B7_PLANS)
+@pytest.mark.parametrize("P,L,M", [(4, 1, 1), (2, 1, 45), (3, 3, 45), (4, 7, 45),
+                                   (4, 20, 4099), (4, 100, 300)])
+def test_b7_plans_match_plain(card, P, L, M, chunks):
+    pulses, _, _, d1, d2, ep, sys_ = su4_inputs(P, M, card, L=L, seed=L)
+    got = t4._launch_propagate(pulses, d1, d2, ep, sys_, chunks=chunks)
+    torch.cuda.synchronize()
+    want, tol = b7_tol(pulses, d1, d2, ep, sys_)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("chunks", B7_PLANS)
+def test_b7_gives_the_same_bits_on_a_rerun(card, chunks):
+    """The chunks combine in a fixed tree: two launches on the same inputs
+    give the same bits, and the card's own plan equals the same plan named."""
+    pulses, _, _, d1, d2, ep, sys_ = su4_inputs(4, 4099, card, L=20)
+    first = t4._launch_propagate(pulses, d1, d2, ep, sys_, chunks=chunks)
+    second = t4._launch_propagate(pulses, d1, d2, ep, sys_, chunks=chunks)
+    planned = t4.propagate_su4_mc_cuda(pulses, d1, d2, ep, sys_)
+    named = t4._launch_propagate(pulses, d1, d2, ep, sys_,
+                                 chunks=t4.propagate_su4_plan(3, 4099, 20))
+    torch.cuda.synchronize()
+    for a, b, c, d in zip(first, second, planned, named):
+        assert torch.equal(a, b) and torch.equal(c, d)
+
+
+def test_b7_refuses_a_plan_it_does_not_run(card):
+    pulses, _, _, d1, d2, ep, sys_ = su4_inputs(4, 64, card)
+    before = t4.propagate_su4_mc_cuda.launches
+    for chunks in [3, 0, 64, -2]:
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            t4._launch_propagate(pulses, d1, d2, ep, sys_, chunks=chunks)
+    assert t4.propagate_su4_mc_cuda.launches == before
+
+
+def test_b7_plan_beside_b4_lanes(card):
+    """Where B4 and B6 take lane groups (one thread per sample gives the
+    schedulers under 1.5 warps each) B7 never runs one thread per sample
+    unless L = 1; on an H100 (132 SMs) the GRAPE curve, serving's sweep and
+    the variants' sweep take the plans PERF.md states."""
+    from universal_quantum_optimal_control_tpu_torch.ops._build import load_library
+    lib = load_library("su4")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    full = 3 * n_sm // 2 * 128
+    for B, M, L in [(1, 4096, 20), (1, 40_000, 100), (1, 2_000_000, 20), (3, 200, 7),
+                    (5, 4096, 100), (1, full, 100), (1, full - 128, 100), (3, 1, 1)]:
+        K = t4.propagate_su4_plan(B, M, L)
+        if lib.uqoc_su4_lanes(B, M) > 1 and L > 1:
+            assert K > 1, (B, M, L)
+        assert 1 <= K <= max(1, L) and lib.uqoc_su4_prop_blocks_per_sm(K, 4, L) >= 1
+    if n_sm == 132:
+        assert [t4.propagate_su4_plan(*shape) for shape in
+                [(1, 4096, 20), (1, 40_000, 100), (1, 2_000_000, 20)]] == [4, 2, 1]

@@ -33,6 +33,13 @@ mask them.  Two builds:
   ``chip_smoke.py`` takes its B4/B6/B7, B5 and B8 bounds from; the flops
   the lanes execute are printed beside them.
 
+B7 also runs a sample's segments in K chunks, one thread each, combined in
+a tree (``compose_chunk()``, ``combine_chunks()``): the plain build holds
+the chunked product to the plain version in f64 for K > L too, the
+counting build holds the chunks' needed flops to the bound's counts with
+the combine (marked ``Overhead``) apart, and ``prop_plan()``, each launch's
+choice of K, is checked as a pure function of the shape and the SM count.
+
 Skipped where no ``g++`` is on the PATH.
 """
 
@@ -65,10 +72,10 @@ PRELUDE = r"""
 #include <vector>
 // the class of the operation being counted: 0 split over the lanes, 1
 // repeated by every lane, 2 a sum over the group, 3 done again by a second
-// lane pair (B8's product)
+// lane pair (B8's product) or a chunk past the first (B7's), 4 B7's combine
 static thread_local int count_class = 0;
 #ifdef COUNT_FLOPS
-static thread_local long long nflops[4];
+static thread_local long long nflops[5];
 struct CF {
   float v;
   constexpr CF() : v(0) {}
@@ -137,6 +144,11 @@ struct Duplicate {
   int saved;
   explicit Duplicate(bool again) : saved(count_class) { count_class = again ? 3 : saved; }
   ~Duplicate() { count_class = saved; }
+};
+struct Overhead {
+  int saved;
+  Overhead() : saved(count_class) { count_class = 4; }
+  ~Overhead() { count_class = saved; }
 };
 """
 
@@ -281,13 +293,43 @@ void count_lanes(const CF* pulses) {
     }
 }
 
+// B7's chunks: one sample on K chunks, every chunk a thread, all at one
+// barrier.  Prints "needed combine executed": the threads' own work, the
+// combine's (Overhead) apart, and all the threads executed.
+void tally_chunks(const CF* pulses, int L, int K) {
+  std::vector<CF> row(6 * L);
+  stage_row<4>(pulses, 0, L, CF(0.1), CF(1.0 / 16), row.data());
+  long long lane[16][5] = {};
+  CF stash[32 * 16];
+  std::barrier<> bar(K);
+  group_barrier = &bar;
+  std::vector<std::thread> threads;
+  for (int j = 0; j < K; ++j)
+    threads.emplace_back([&, j] {
+      for (auto& n : nflops) n = 0;
+      Mat W = compose_chunk(row.data(), L, K, j, CF(0.1), CF(-0.2), CF(0.03), CF(0.5), 4);
+      combine_chunks(K, j, stash + j, K, W);
+      for (int c = 0; c < 5; ++c) lane[j][c] = nflops[c];
+    });
+  for (auto& t : threads) t.join();
+  long long needed = 0, combine = 0, executed = 0;
+  for (int q = 0; q < K; ++q) {
+    needed += lane[q][0];
+    combine += lane[q][4];
+    for (long long n : lane[q]) executed += n;
+  }
+  printf("%lld %lld %lld\n", needed, combine, executed);
+}
+
 // Lines, one thread per sample (one count each): compose() at L = 1, 2;
 // seed(); the sweep at P = 2, 3, 4 for L = 1, then L = 2; B8's sample
 // likewise.  Then the lane groups ("needed executed alike" each): B4's
 // compose_lane() at L = 1, 2; B5 at P = 2, 3, 4 for L = 1, then L = 2; B8
-// likewise.
+// likewise.  Then B7's chunks ("needed combine executed" each): K = 2 at
+// L = 2, 4, then K = 4 at L = 4, 8.
 int main() {
-  CF pulses[8] = {0.3, -0.2, 0.7, 0.1, 1.2, 0.4, 0.6, 0.2};
+  CF pulses[16] = {0.3, -0.2, 0.7, 0.1, 1.2, 0.4, 0.6, 0.2,
+                   -0.9, 0.5, 1.1, 0.3, 2.0, -1.3, 0.8, 0.45};
   for (int L = 1; L <= 2; ++L) {
     CF row[12];
     stage_row<4>(pulses, 0, L, CF(0.1), CF(1.0 / 16), row);
@@ -316,6 +358,8 @@ int main() {
     count_rebuild<4>(row, L);
   }
   count_lanes(pulses);
+  for (int L = 2; L <= 4; L += 2) tally_chunks(pulses, L, 2);
+  for (int L = 4; L <= 8; L += 4) tally_chunks(pulses, L, 4);
 }
 #else
 // One target's samples as the kernels run them: in one thread each, or in
@@ -426,6 +470,33 @@ void sweep_target(const Target& t, const float* target, float gbar, const float*
     for (int g = 0; g < S; ++g) acc[j] += accs[g][j];
 }
 
+// B7 on chunks, one target: 4 samples side by side, each on K chunks, every
+// chunk a thread, all meeting at one barrier as a warp's lanes meet; the
+// chunks' exchange laid out as the kernel lays it out (a column each, a
+// sample's consecutive); samples past M with zero disorder.  W of each
+// sample into out (M, 32): 16 re, 16 im.
+void chunk_target(const Target& t, int K, float* out) {
+  const int side = 4;
+  std::vector<float> stash(32 * side * K);
+  for (long m0 = 0; m0 < t.M; m0 += side) {
+    std::barrier<> bar(side * K);
+    group_barrier = &bar;
+    std::vector<std::thread> lanes;
+    for (int q = 0; q < side; ++q)
+      for (int j = 0; j < K; ++j)
+        lanes.emplace_back([&, q, j] {
+          const long m = m0 + q;
+          const bool active = m < t.M;
+          const float d1 = active ? t.d1[m] : 0.0f, d2 = active ? t.d2[m] : 0.0f;
+          const float ep = active ? t.ep[m] : 0.0f;
+          Mat W = compose_chunk(t.row6.data(), t.L, K, j, d1, d2, ep, t.J, t.scaling);
+          combine_chunks(K, j, stash.data() + q * K + j, side * K, W);
+          if (j == 0 && active) stash_store(out + 32 * m, 1, W);
+        });
+    for (auto& th : lanes) th.join();
+  }
+}
+
 // B8's sample in one thread: compose(), seed(), reverse_sweep().
 template <int P>
 void sweep_thread(const Target& t, const float* target, float gbar, std::vector<double>& acc,
@@ -454,21 +525,34 @@ void sweep(int mode, const Target& t, const float* target, float gbar, const flo
     sweep_target<P>(t, target, gbar, prod, acc, ps);
 }
 
-// stdin: mode B L P M xtalk coupling scaling, pulses (B L P), d1, d2, eps
-// (B M), and for modes 1-4 the targets' re and im (B 16 each) and gbar (B).
-// stdout, mode 0 (compose(), one thread a sample): per sample the 16
-// entries of W, re and im; mode 2 (B4 on its lane groups): the same, then
-// the B mean F; mode 1 (B5 on its lane groups, seeded with mode 2's
-// product), mode 3 (B8 on its lane groups) and mode 4 (B8's sample in one
-// thread): dpulses (B L P), then dd1, dd2, deps (B M).
+// stdin: mode B L P M xtalk coupling scaling (mode 5: then K), pulses
+// (B L P), d1, d2, eps (B M), and for modes 1-4 the targets' re and im (B 16
+// each) and gbar (B); mode 6: n, then n lines B M L n_sm.
+// stdout, mode 0 (compose(), one thread a sample) and mode 5 (B7 on K
+// chunks): per sample the 16 entries of W, re and im; mode 2 (B4
+// on its lane groups): the same, then the B mean F; mode 1 (B5 on its lane
+// groups, seeded with mode 2's product), mode 3 (B8 on its lane groups) and
+// mode 4 (B8's sample in one thread): dpulses (B L P), then dd1, dd2, deps
+// (B M); mode 6: B7's plan K a line.
 int main() {
-  int mode, B, L, P, scaling;
+  int mode, B, L, P, scaling, K = 1;
   long M;
   float xt, J;
-  if (scanf("%d %d %d %d %ld %f %f %d", &mode, &B, &L, &P, &M, &xt, &J, &scaling) != 8)
-    return 1;
+  if (scanf("%d", &mode) != 1) return 1;
+  if (mode == 6) {
+    int n, nsm;
+    if (scanf("%d", &n) != 1) return 1;
+    for (int q = 0; q < n; ++q) {
+      if (scanf("%d %ld %d %d", &B, &M, &L, &nsm) != 4) return 1;
+      printf("%d\n", prop_plan(B, M, L, nsm, kBlockThreads));
+    }
+    return 0;
+  }
+  if (scanf("%d %d %d %ld %f %f %d", &B, &L, &P, &M, &xt, &J, &scaling) != 7) return 1;
+  if (mode == 5 && scanf("%d", &K) != 1) return 1;
+  const bool targeted = mode >= 1 && mode <= 4;
   std::vector<float> pulses(B * L * P), d1(B * M), d2(B * M), ep(B * M);
-  std::vector<float> t(mode ? 32 * B : 0), gbar(mode ? B : 0);
+  std::vector<float> t(targeted ? 32 * B : 0), gbar(targeted ? B : 0);
   for (auto* v : {&pulses, &d1, &d2, &ep, &t, &gbar})
     for (auto& x : *v)
       if (scanf("%f", &x) != 1) return 1;
@@ -486,6 +570,15 @@ int main() {
         const Mat W = compose(targets[b].row6.data(), L, d1[i], d2[i], ep[i], J, scaling);
         for (int e = 0; e < 16; ++e) printf("%.9g %.9g\n", W.re[e], W.im[e]);
       }
+    return 0;
+  }
+  if (mode == 5) {
+    for (int b = 0; b < B; ++b) {
+      std::vector<float> out(32 * M);
+      chunk_target(targets[b], K, out.data());
+      for (long m = 0; m < M; ++m)
+        for (int e = 0; e < 16; ++e) printf("%.9g %.9g\n", out[32 * m + e], out[32 * m + 16 + e]);
+    }
     return 0;
   }
   // targets: B re rows of 16, then B im rows of 16
@@ -675,20 +768,23 @@ def host_counts(host_builds):
     seed(); the sweep at P = 2, 3, 4 for L = 1 then 2; B8's sample likewise),
     then the lane groups' (needed, executed, repeated work alike in every
     lane) per case (B4 at L = 1, 2; B5 at P = 2, 3, 4 for L = 1 then 2; B8
-    likewise)."""
+    likewise), then B7's chunks' (needed, combine, executed) at K = 2 (L =
+    2, 4) and K = 4 (L = 4, 8)."""
     lines = subprocess.run([str(host_builds["count"])], capture_output=True, text=True,
                            check=True).stdout.splitlines()
     thread = [int(x) for x in lines[:15]]
-    rows = [tuple(int(x) for x in line.split()) for line in lines[15:]]
+    rows = [tuple(int(x) for x in line.split()) for line in lines[15:29]]
+    chunks = [tuple(int(x) for x in line.split()) for line in lines[29:]]
     assert len(rows) == 14 and all(r[2] == 1 for r in rows), \
         "the repeated work differs between lanes"
-    return thread, rows
+    assert len(chunks) == 4
+    return thread, rows, chunks
 
 
 def test_compose_flops_on_the_host_are_the_bound_counts(host_builds):
     """``compose()`` (one thread per sample: B7, and B4 and B6 on launches
     that fill the card) per segment and per sample."""
-    thread, lanes = host_counts(host_builds)
+    thread, lanes, _ = host_counts(host_builds)
     one, two = thread[:2]
     assert two - one == chip_smoke.SU4_FLOPS_PER_SEGMENT
     assert one - chip_smoke.SU4_FLOPS_PER_SEGMENT == chip_smoke.SU4_FLOPS_PER_SAMPLE
@@ -700,7 +796,7 @@ def test_compose_flops_on_the_host_are_the_bound_counts(host_builds):
 def test_reverse_sweep_flops_on_the_host_are_the_bound_counts(host_builds):
     """B5 per segment (the sweep and one add per channel for the sum over
     samples) and per sample (the energies, (1 + ε)/2 and the seed)."""
-    thread, lanes = host_counts(host_builds)
+    thread, lanes, _ = host_counts(host_builds)
     seed, one, two = thread[2], thread[3:6], thread[6:9]
     for P, c1, c2 in zip((2, 3, 4), one, two):
         assert c2 - c1 == chip_smoke.SU4_VJP_FLOPS_PER_SEGMENT[P], P
@@ -713,7 +809,7 @@ def test_reverse_sweep_flops_on_the_host_are_the_bound_counts(host_builds):
 def test_rebuild_sweep_flops_on_the_host_are_the_bound_counts(host_builds):
     """B8 per segment (the product's segment and B5's) and per sample (the
     product's energies and (1 + ε)/2, then B5's per-sample work)."""
-    thread, lanes = host_counts(host_builds)
+    thread, lanes, _ = host_counts(host_builds)
     one, two = thread[9:12], thread[12:15]
     for P, c1, c2 in zip((2, 3, 4), one, two):
         assert c2 - c1 == chip_smoke.SU4_B8_FLOPS_PER_SEGMENT[P] \
@@ -728,7 +824,7 @@ def test_lane_flops_on_the_host_are_the_bound_counts(host_builds):
     """The lane groups' B4, B5 and B8: the lanes' shares summed and the work
     every lane repeats taken once are the bound's counts, per segment and per
     sample."""
-    _, r = host_counts(host_builds)
+    _, r, _ = host_counts(host_builds)
     (n1, _, _), (n2, _, _) = r[0], r[1]
     assert n2 - n1 == chip_smoke.SU4_FLOPS_PER_SEGMENT
     assert n1 - (n2 - n1) == chip_smoke.SU4_FLOPS_PER_SAMPLE
@@ -738,3 +834,88 @@ def test_lane_flops_on_the_host_are_the_bound_counts(host_builds):
     for P, (n1, _, _), (n2, _, _) in zip((2, 3, 4), r[8:11], r[11:14]):
         assert n2 - n1 == chip_smoke.SU4_B8_FLOPS_PER_SEGMENT[P], P
         assert n1 - (n2 - n1) == chip_smoke.SU4_B8_FLOPS_PER_SAMPLE, P
+
+
+# B7 on chunks (su4.cuh, "B7 on chunks"): a sample's L segments split into
+# K chunks, one thread each, combined in a fixed tree of dense products;
+# M = 45 leaves the last samples side by side past M (zero disorder, not
+# stored); K > L leaves chunks with no segment.
+@pytest.mark.parametrize("K", [1, 2, 4, 5, 8, 16, 32])
+@pytest.mark.parametrize("L", [1, 7, 20])
+@pytest.mark.parametrize("P", [2, 3, 4])
+def test_chunked_compose_math_on_the_host(host_builds, P, L, K):
+    """B7 on K chunks (``compose_chunk()``, ``combine_chunks()``, chunk 0's
+    product) against the plain version in f64 at the product tolerance."""
+    B, M, xt, J, s = 2, 45, 0.1, 0.5, 4
+    _, pulses, d1, d2, ep = pulse_case(P, B, L, M, 80 + 10 * P + L)
+    W = run_host(host_builds["math"], 5, B, L, P, M, xt, J, s, K,
+                 arrays=(pulses, d1, d2, ep)).reshape(B, M, 4, 4, 2)
+    Ur, Ui = tsu4.propagate_su4_mc(*(torch.from_numpy(a).double() for a in (pulses, d1, d2, ep)),
+                                   plain_system(P, xt, J, s))
+    np.testing.assert_allclose(W[..., 0], Ur.numpy(), atol=PROD_TOL, rtol=0)
+    np.testing.assert_allclose(W[..., 1], Ui.numpy(), atol=PROD_TOL, rtol=0)
+
+
+# the design's overhead per sample on K chunks: K - 1 combines (matmul, 480
+# flops)
+COMBINE_FLOPS = 480
+
+
+@pytest.mark.parametrize("K", [2, 4])
+def test_chunk_flops_on_the_host_are_the_bound_counts(host_builds, K):
+    """B7 on K chunks: the flops the function needs are the bound's
+    (``chip_smoke.py``'s 3661 a segment, 10 a sample), and the combine's are
+    apart, the same at every L; every chunk past the first forms the
+    per-sample work again."""
+    _, _, chunks = host_counts(host_builds)
+    (n1, c1, x1), (n2, c2, x2) = chunks[:2] if K == 2 else chunks[2:]
+    assert n2 - n1 == K * chip_smoke.SU4_FLOPS_PER_SEGMENT
+    assert n1 - K * chip_smoke.SU4_FLOPS_PER_SEGMENT == chip_smoke.SU4_FLOPS_PER_SAMPLE
+    assert c1 == c2 == (K - 1) * COMBINE_FLOPS
+    assert x1 == n1 + c1 + (K - 1) * chip_smoke.SU4_FLOPS_PER_SAMPLE
+    print(f"B7 on {K} chunks: {x2 - x1} flops executed per {K} sample-segments "
+          f"(bound {n2 - n1}), combine {c1} a sample, {x1 - (x2 - x1)} per sample in all")
+
+
+N_SM = 132  # an H100's SMs
+
+
+def host_plans(host_builds, queries):
+    """B7's plan K for each ``(B, M, L)`` on N_SM SMs."""
+    stdin = f"6 {len(queries)}\n" + "\n".join(f"{B} {M} {L} {N_SM}" for B, M, L in queries)
+    out = subprocess.run([str(host_builds["math"])], input=stdin, capture_output=True,
+                         text=True, check=True).stdout.split()
+    return [int(k) for k in out]
+
+
+# the paths' B7 launches on an H100, with the plans measured best there
+# (PERF.md): the GRAPE robustness curve, serving's E[F](sigma) sweep, the
+# variants' sweep; then chip_smoke.py's check-su4 shapes (3 targets), which
+# no path launches
+@pytest.mark.parametrize("B,M,L,plan", [
+    (1, 4096, 20, 4),
+    (1, 40_000, 100, 2),
+    (1, 2_000_000, 20, 1),
+    (3, 200, 1, 1),
+    (3, 200, 7, 4),
+    (3, 200, 100, 16),
+    (3, 16_384, 100, 1),
+])
+def test_launch_plan_on_the_host(host_builds, B, M, L, plan):
+    """B7's plan (``prop_plan()``) at the paths' and the check's shapes."""
+    assert host_plans(host_builds, [(B, M, L)]) == [plan]
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 7, 20, 100])
+def test_launch_plan_keeps_the_schedulers_supplied(host_builds, L):
+    """The plan's K is a power of two within a warp and at most L; and where
+    one thread per sample would give the schedulers under 1.5 warps each
+    (blocks of 128 threads, 4 warps, over N_SM SMs of 4 schedulers), K > 1
+    unless L = 1."""
+    queries = [(B, M, L) for B in (1, 3, 5, 32)
+               for M in (1, 45, 128, 1000, 4096, 6335, 6336, 8192, 12_800, 40_000, 2_000_000)]
+    for (B, M, L_), K in zip(queries, host_plans(host_builds, queries)):
+        case = (B, M, L_, K)
+        assert K & (K - 1) == 0 and 1 <= K <= min(32, L_), case
+        if B * -(-M // 128) < 1.5 * N_SM and L_ > 1:
+            assert K > 1, case

@@ -136,9 +136,16 @@ def _declare_su4(lib: ctypes.CDLL) -> None:
     lib.uqoc_su4_lanes.restype = i32
     lib.uqoc_su4_blocks_per_sm.argtypes = [i32, i64, i32, i32, i32]
     lib.uqoc_su4_blocks_per_sm.restype = i32
+    lib.uqoc_su4_prop_chunks.argtypes = [i32, i64, i32]
+    lib.uqoc_su4_prop_chunks.restype = i32
+    lib.uqoc_su4_prop_blocks_per_sm.argtypes = [i32, i32, i32]
+    lib.uqoc_su4_prop_blocks_per_sm.restype = i32
     lib.uqoc_su4_propagate_mc.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i64, f32, f32, i32, ptr]
     lib.uqoc_su4_propagate_mc.restype = i32
+    lib.uqoc_su4_propagate_mc_plan.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i64, i32, f32, f32, i32, ptr]
+    lib.uqoc_su4_propagate_mc_plan.restype = i32
     lib.uqoc_su4_mean_fidelity.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i64, f32, f32, i32, ptr]
     lib.uqoc_su4_mean_fidelity.restype = i32

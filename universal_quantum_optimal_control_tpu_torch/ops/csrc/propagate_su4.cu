@@ -2,8 +2,9 @@
 //
 // Replaces three Pallas TPU kernels of the JAX package:
 //   B7  universal_quantum_optimal_control_tpu/ops/propagate_su4_pallas.py:_prop_kernel
-//       -> propagate_su4_kernel: per-sample product U_L ... U_1 as (re, im),
-//          each (B, M, 4, 4).
+//       -> propagate_su4_kernel (one thread per sample) or
+//          propagate_su4_chunks_kernel (a sample's segments in chunks):
+//          per-sample product U_L ... U_1 as (re, im), each (B, M, 4, 4).
 //   B6  universal_quantum_optimal_control_tpu/ops/propagate_su4_pallas.py:_fid_kernel
 //       -> mean_fid_su4_kernel<P, false, G> + reduce_partials_kernel: per-target
 //          mean entanglement fidelity F = (|Tr(U^H T)|^2 + 4) / 20, (B,).
@@ -57,8 +58,17 @@
 //   * Tr(U^H T) is summed over the lane's columns, then over the group in a
 //     fixed order (su4::group_sum); the group's first lane adds F to the
 //     block;
-//   * B7 keeps one thread per sample (compose()): its sweeps fill the card
-//     many times over and it writes 128 contiguous bytes a thread;
+//   * B7 runs each launch under a plan, K chunks a sample (su4.cuh,
+//     prop_plan): a sample's L segments split into K chunks, one thread
+//     each, then log2 K combines through shared memory (su4.cuh, "B7 on
+//     chunks").  One thread per sample left the GRAPE robustness curve (1 x
+//     4096 samples, L = 20) 32 blocks, one warp a scheduler on a quarter of
+//     the SMs, each thread's 20 segments the launch, and put 3 blocks on 49
+//     SMs and 2 on the rest at serving's sweep (1 x 40 000, L = 100).  The
+//     plan gives the busiest SM the least work: K = 4 and K = 2 there; the
+//     sweeps of many waves keep K = 1, the one-thread kernel.  The chunked
+//     kernel stages each block's products in shared memory and stores them
+//     as contiguous float4 runs;
 //   * the per-segment scalars depend on the target and the segment only, not
 //     on the sample: each block stages them once into shared memory (the
 //     envelopes' cos and sin with the accurate sincosf, max(Omega, 0) and
@@ -99,7 +109,13 @@ constexpr int kSamples = kThreads / G;
 template <int G>
 constexpr int kXchFloats = G == 1 ? 0 : kWarps * kFwdSlots * su4::slot_stride<G>;
 
-// B7: grid (ceil(M / kThreads), B); out_re and out_im are (B, M, 16).
+// B7's chunked launches: the chunks' exchange, a column of 32 floats a
+// thread, then the block's products staged for the store (32 floats a
+// sample).
+constexpr int kChunkXchFloats = kThreads * su4::kSlotFloats;
+
+// B7 on one thread per sample (plan K = 1): grid (ceil(M / kThreads), B);
+// out_re and out_im are (B, M, 16).
 template <int P>
 __global__ void __launch_bounds__(kThreads)
 propagate_su4_kernel(const float* __restrict__ pulses,
@@ -122,6 +138,48 @@ propagate_su4_kernel(const float* __restrict__ pulses,
   for (int r = 0; r < 4; ++r) {
     re[r] = make_float4(W.re[4 * r], W.re[4 * r + 1], W.re[4 * r + 2], W.re[4 * r + 3]);
     im[r] = make_float4(W.im[4 * r], W.im[4 * r + 1], W.im[4 * r + 2], W.im[4 * r + 3]);
+  }
+}
+
+// B7 on chunks (plan K > 1): grid (ceil(M / S), B) with S = kThreads / K
+// samples a block; sample m on the K threads K (m mod S) .. of block m / S,
+// one warp's (K divides 32), chunk j on thread K (m mod S) + j (su4.cuh,
+// compose_chunk and the tree).  Chunk 0 stages the sample's W in shared
+// memory and the block stores its samples' (S, 16) re and im as contiguous
+// float4 runs.
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+propagate_su4_chunks_kernel(const float* __restrict__ pulses, const float* __restrict__ d1,
+                            const float* __restrict__ d2, const float* __restrict__ eps,
+                            float* __restrict__ out_re, float* __restrict__ out_im, int L,
+                            int64_t M, int K, float xtalk, float coupling, int scaling,
+                            float tau_scale) {
+  extern __shared__ float4 smem4[];
+  float* xch = reinterpret_cast<float*>(smem4);
+  float* row = xch + kChunkXchFloats;
+  const int b = blockIdx.y;
+  const int S = kThreads / K;
+  const int t = threadIdx.x, s = t / K, j = t % K;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * S, m = m0 + s;
+  const bool active = m < M;
+  const int64_t i = static_cast<int64_t>(b) * M + m;
+  // samples past M compose with zero disorder and are not stored; the
+  // loads are issued before the row is staged, so that their wait overlaps it
+  const float v1 = active ? d1[i] : 0.0f, v2 = active ? d2[i] : 0.0f;
+  const float ve = active ? eps[i] : 0.0f;
+  su4::stage_row<P>(pulses, b, L, xtalk, tau_scale, row);
+  __syncthreads();
+  Mat W = su4::compose_chunk(row, L, K, j, v1, v2, ve, coupling, scaling);
+  su4::combine_chunks(K, j, xch + t, kThreads, W);
+  __syncthreads();
+  if (j == 0) su4::stash_store(xch + 32 * s, 1, W);  // 16 re, then 16 im
+  __syncthreads();
+  const int64_t n = M - m0 < S ? M - m0 : S;
+  float4* re = reinterpret_cast<float4*>(out_re) + 4 * (static_cast<int64_t>(b) * M + m0);
+  float4* im = reinterpret_cast<float4*>(out_im) + 4 * (static_cast<int64_t>(b) * M + m0);
+  for (int q = t; q < 4 * n; q += kThreads) {
+    re[q] = smem4[8 * (q / 4) + q % 4];
+    im[q] = smem4[8 * (q / 4) + 4 + q % 4];
   }
 }
 
@@ -316,6 +374,52 @@ int fid_blocks_per_sm(int B, int64_t M, int L) {
   return blocks_per_sm(mean_fid_su4_kernel<P, kProduct, kLanes>, fid_smem<kLanes>(L));
 }
 
+// B7's plan for B targets of M samples of L segments on this card.
+inline int prop_plan(int B, int64_t M, int L) {
+  return su4::prop_plan(B, M, L, uqoc::sm_count(), kThreads);
+}
+
+// A plan the chunked kernel runs: K a power of two within a warp.
+inline bool valid_plan(int K) { return K >= 1 && K <= 32 && (K & (K - 1)) == 0; }
+
+inline size_t chunk_smem(int L) { return sizeof(float) * kChunkXchFloats + row_bytes(L); }
+
+// B7 under plan K: 1 one thread per sample, else chunked.
+template <int P>
+cudaError_t launch_propagate(cudaStream_t s, const float* pulses, const float* d1,
+                             const float* d2, const float* eps, float* out_re, float* out_im,
+                             int B, int L, int64_t M, int K, float xtalk, float coupling,
+                             int scaling) {
+  const float tau_scale = std::ldexp(1.0f, -scaling);
+  if (K == 1) {
+    const dim3 grid(static_cast<unsigned int>((M + kThreads - 1) / kThreads), B);
+    propagate_su4_kernel<P><<<grid, kThreads, row_bytes(L), s>>>(
+        pulses, d1, d2, eps, out_re, out_im, L, M, xtalk, coupling, scaling, tau_scale);
+    return cudaGetLastError();
+  }
+  const size_t smem = chunk_smem(L);
+  if (smem > 48 * 1024) {  // refused past the card's opt-in limit (227 KB on sm_90)
+    const cudaError_t err = cudaFuncSetAttribute(
+        propagate_su4_chunks_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return err;
+    }
+  }
+  const int64_t per_block = kThreads / K;
+  const dim3 grid(static_cast<unsigned int>((M + per_block - 1) / per_block), B);
+  propagate_su4_chunks_kernel<P><<<grid, kThreads, smem, s>>>(
+      pulses, d1, d2, eps, out_re, out_im, L, M, K, xtalk, coupling, scaling, tau_scale);
+  return cudaGetLastError();
+}
+
+template <int P>
+int prop_blocks_per_sm(int K, int L) {
+  if (K == 1) return blocks_per_sm(propagate_su4_kernel<P>, row_bytes(L));
+  return blocks_per_sm(propagate_su4_chunks_kernel<P>, chunk_smem(L));
+}
+
 }  // namespace
 
 extern "C" {
@@ -344,33 +448,57 @@ int uqoc_su4_blocks_per_sm(int B, int64_t M, int P, int product, int L) {
   }
 }
 
-// P = 4 is the drive2 system (the wrapper checks it).
+// B7's plan for B targets of M samples of L segments on this card: chunks
+// per sample (K); 1 is one thread per sample.
+int uqoc_su4_prop_chunks(int B, int64_t M, int L) { return prop_plan(B, M, L); }
+
+// Resident blocks per SM of B7's kernel under plan K at pulse width P and L
+// segments, or minus the CUDA error.
+int uqoc_su4_prop_blocks_per_sm(int K, int P, int L) {
+  if (!valid_plan(K)) return -static_cast<int>(cudaErrorInvalidValue);
+  switch (P) {
+    case 2:
+      return prop_blocks_per_sm<2>(K, L);
+    case 3:
+      return prop_blocks_per_sm<3>(K, L);
+    case 4:
+      return prop_blocks_per_sm<4>(K, L);
+    default:
+      return -static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// B7 under the plan K the caller names (uqoc_su4_propagate_mc takes the
+// card's).  P = 4 is the drive2 system (the wrapper checks it).
+cudaError_t uqoc_su4_propagate_mc_plan(const float* pulses, const float* d1, const float* d2,
+                                       const float* eps, float* out_re, float* out_im, int B,
+                                       int L, int P, int64_t M, int K, float xtalk,
+                                       float coupling, int scaling, void* stream) {
+  if (!valid_plan(K)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (P) {
+    case 2:
+      return launch_propagate<2>(s, pulses, d1, d2, eps, out_re, out_im, B, L, M, K, xtalk,
+                                 coupling, scaling);
+    case 3:
+      return launch_propagate<3>(s, pulses, d1, d2, eps, out_re, out_im, B, L, M, K, xtalk,
+                                 coupling, scaling);
+    case 4:
+      return launch_propagate<4>(s, pulses, d1, d2, eps, out_re, out_im, B, L, M, K, xtalk,
+                                 coupling, scaling);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// B7 under the card's plan.
 cudaError_t uqoc_su4_propagate_mc(const float* pulses, const float* d1,
                                   const float* d2, const float* eps,
                                   float* out_re, float* out_im, int B, int L,
                                   int P, int64_t M, float xtalk, float coupling,
                                   int scaling, void* stream) {
-  const dim3 grid(static_cast<unsigned int>((M + kThreads - 1) / kThreads), B);
-  const size_t smem = row_bytes(L);
-  const float tau_scale = std::ldexp(1.0f, -scaling);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (P) {
-    case 2:
-      propagate_su4_kernel<2><<<grid, kThreads, smem, s>>>(
-          pulses, d1, d2, eps, out_re, out_im, L, M, xtalk, coupling, scaling, tau_scale);
-      break;
-    case 3:
-      propagate_su4_kernel<3><<<grid, kThreads, smem, s>>>(
-          pulses, d1, d2, eps, out_re, out_im, L, M, xtalk, coupling, scaling, tau_scale);
-      break;
-    case 4:
-      propagate_su4_kernel<4><<<grid, kThreads, smem, s>>>(
-          pulses, d1, d2, eps, out_re, out_im, L, M, xtalk, coupling, scaling, tau_scale);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  return uqoc_su4_propagate_mc_plan(pulses, d1, d2, eps, out_re, out_im, B, L, P, M,
+                                    prop_plan(B, M, L), xtalk, coupling, scaling, stream);
 }
 
 // B6: partials (B, uqoc_su4_num_blocks(B, M)) scratch, out (B,).

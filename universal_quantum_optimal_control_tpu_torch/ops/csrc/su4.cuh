@@ -17,13 +17,16 @@
 // of L dependent segments of 3661 flops (B4, B6, B7) or 12264-12274 (B5)
 // against 12-140 bytes read; thousands of flops per byte.
 //
-// Two ways to run a sample:
-//   * one thread per sample (compose(), seed(), reverse_sweep()): B7
-//     always; B4, B6, B5 and B8 where a launch fills the card;
+// Ways to run a sample:
+//   * one thread per sample (compose(), seed(), reverse_sweep()): B4, B6,
+//     B5, B8 and B7 where a launch fills the card;
 //   * a lane group (compose_lane(), seed_lane(), reverse_sweep_lane()): G
 //     lanes of one warp per sample, B4, B6, B5 and B8 where a launch of one
 //     thread per sample would leave the card's warp schedulers under 1.5
-//     warps each (common.cuh, lane_groups_pay).
+//     warps each (common.cuh, lane_groups_pay);
+//   * B7 only: a sample's segments split into K chunks, one thread each,
+//     combined in a tree (compose_chunk(), combine_chunks()), under a plan
+//     per launch (prop_plan).
 //
 // What held one thread per sample back.  B5 takes 255 registers, so at
 // most two 128-thread blocks fit on an SM; at the per-gate polish's shape
@@ -442,8 +445,21 @@ __device__ __forceinline__ Mat expm_m1(const Tri& A, const Tri& A2, const Tri& A
   return X;
 }
 
-// Compose the L segments of one sample in one thread (B7), left to right:
-// W <- exp(A_k) W.
+// The product of segments k0 .. k1 - 1 of one sample in one thread, left to
+// right: W <- exp(A_k) W.
+__device__ __forceinline__ Mat compose_span(const float* row, int L, int k0, int k1,
+                                            const float h[4], float half, int scaling) {
+  Mat W = identity();
+  for (int k = k0; k < k1; ++k) {
+    Tri A, A2, A3, A4;
+    powers(row, L, k, h, half, A, A2, A3, A4);
+    W = add_mul(expm_m1(A, A2, A3, A4, scaling), W);
+  }
+  return W;
+}
+
+// Compose the L segments of one sample in one thread (B7 on full launches,
+// B4, B6, B8), left to right.
 // Flops per segment: 10 + 37 + 128 + 166 (powers), 184 (P - I and Q), 448
 // (P - I + A^4 Q), 544 per squaring and 512 (W): 3661 at s = 4.  Per sample
 // 10 (the energies and (1 + eps)/2).
@@ -452,14 +468,7 @@ __device__ __forceinline__ Mat compose(const float* row, int L, float d1,
                                        int scaling) {
   float h[4];
   energies(d1, d2, coupling, h);
-  const float half = 0.5f * (1.0f + eps);
-  Mat W = identity();
-  for (int k = 0; k < L; ++k) {
-    Tri A, A2, A3, A4;
-    powers(row, L, k, h, half, A, A2, A3, A4);
-    W = add_mul(expm_m1(A, A2, A3, A4, scaling), W);
-  }
-  return W;
+  return compose_span(row, L, 0, L, h, 0.5f * (1.0f + eps), scaling);
 }
 
 // ---------------------------------------------------------------------------
@@ -937,6 +946,12 @@ struct Repeated {
 struct Duplicate {
   __device__ __forceinline__ explicit Duplicate(bool again) {}
 };
+
+// Marks work of B7's chunks that the function does not need (their
+// combine); the host's flop count reports it apart.
+struct Overhead {
+  __device__ __forceinline__ Overhead() {}
+};
 #endif
 
 // The 16 bytes of slot SLOT holding half q (0: re, 1: im) of column col.  A
@@ -1189,6 +1204,104 @@ __device__ __forceinline__ void compose_lane(const float* row, int L, float d1, 
 constexpr int kComposeLanes = 2;
 // The lanes per sample of B5's and B8's lane groups in the sweep.
 constexpr int kSweepLanes = 4;
+
+// ---------------------------------------------------------------------------
+// B7 on chunks: a sample's segments split over K threads
+// ---------------------------------------------------------------------------
+//
+// Where one thread per sample leaves the warp schedulers short (the GRAPE
+// robustness curve, 1 x 4096 samples of 20 segments: 32 blocks on 132 SMs,
+// one warp a scheduler, each thread's 20 dependent segments the whole
+// launch), a sample's L segments split into K contiguous chunks, whose
+// lengths differ by at most one (the longer first), one thread each, the K
+// threads of a sample in one warp.  Chunk j forms W_j, the product of its
+// segments, as compose() does.  The chunks then combine in a fixed tree: at
+// distance d = 1, 2, 4, ..., chunk j (a multiple of 2d) takes W_{j+d}
+// (later segments: the left factor) from the chunks' exchange and forms
+// W_{j+d} W_j.  So W = W_{K-1} ... W_0 in chunk 0, the same bits from run to
+// run.  The combine is the design's overhead beside the bound's count,
+// marked Overhead: K - 1 dense products (matmul, 480 flops) a sample; every
+// chunk past the first forms the energies and (1 + eps) / 2 again (10
+// flops, marked Duplicate).
+
+// The segments k0 .. k1 - 1 of chunk j of K over L.
+struct Span {
+  int k0, k1;
+};
+
+__host__ __device__ constexpr Span chunk_span(int L, int K, int j) {
+  const int q = L / K, r = L % K;
+  const int k0 = j * q + (j < r ? j : r);
+  return {k0, k0 + q + (j < r ? 1 : 0)};
+}
+
+// B7, chunk j of K of one sample on one thread: W_j.
+__device__ __forceinline__ Mat compose_chunk(const float* row, int L, int K, int j, float d1,
+                                             float d2, float eps, float coupling, int scaling) {
+  float h[4], half;
+  {
+    const Duplicate again(j > 0);
+    energies(d1, d2, coupling, h);
+    half = 0.5f * (1.0f + eps);
+  }
+  const Span sp = chunk_span(L, K, j);
+  return compose_span(row, L, sp.k0, sp.k1, h, half, scaling);
+}
+
+// The tree over the K chunks of one sample, one thread a chunk: W holds
+// chunk j's W_j, and ends with the sample's product in chunk 0.  `col` is
+// chunk j's column of the chunks' exchange (entries `stride` apart), chunk
+// j + d's is col + d.  A chunk writes its column once, at the level where it
+// hands over its W and stops, and the column is read after that level's
+// sync: one sync a level.
+__device__ __forceinline__ void combine_chunks(int K, int j, float* col, int stride, Mat& W) {
+  const Overhead extra;
+  for (int d = 1; d < K; d *= 2) {
+    if ((j & (2 * d - 1)) == d) stash_store(col, stride, W);
+    group_sync();
+    if ((j & (2 * d - 1)) == 0 && j + d < K) W = matmul(stash_load(col + d, stride), W);
+  }
+}
+
+// Blocks of a launch of B targets of M samples, threads / K samples a
+// block.
+inline int64_t prop_blocks(int B, int64_t M, int threads, int K) {
+  const int64_t per_block = threads / K;
+  return B * ((M + per_block - 1) / per_block);
+}
+
+// A combine's flops (matmul) over a segment's (compose): what a level of the
+// tree adds to a chunk's chain.
+constexpr double kCombineShare = 480.0 / 3661.0;
+
+// B7's plan for B targets of M samples of L segments in blocks of `threads`
+// (4 warps, one on each of an SM's 4 warp schedulers) on n_sm SMs: the
+// chunks per sample K whose busiest SM has the least work, ceil(blocks /
+// n_sm) blocks of chunks of ceil(L / K) segments and log2 K combines; K a
+// power of two <= min(L, 32); the least K of equal work.  It weighs SMs a
+// launch leaves idle, or loads one block more than the rest, against the
+// combines.  K = 1, one thread per sample, is no candidate where it gives
+// the schedulers under 1.5 warps each (blocks < 1.5 n_sm, the threshold of
+// B4's and B6's lane groups, common.cuh's lane_groups_pay) and L > 1.  On an
+// H100 (132 SMs), the GRAPE curve (1 x 4096, L = 20) takes K = 4: 128
+// blocks, one a SM; serving's sweep (1 x 40 000, L = 100) K = 2, where K = 1
+// puts 3 blocks on 49 SMs and 2 on the rest; the variants' sweep (2 000 000
+// samples, L = 20: 119 blocks a SM) K = 1.
+inline int prop_plan(int B, int64_t M, int L, int n_sm, int threads) {
+  if (n_sm < 1 || L < 2) return 1;
+  const bool short_at_one = 2 * prop_blocks(B, M, threads, 1) < 3 * static_cast<int64_t>(n_sm);
+  int best = 0;
+  double least = 0.0;
+  for (int K = short_at_one ? 2 : 1, levels = K - 1; K <= L && K <= 32; K *= 2, ++levels) {
+    const int64_t busiest = (prop_blocks(B, M, threads, K) + n_sm - 1) / n_sm;
+    const double cost = busiest * ((L + K - 1) / K + levels * kCombineShare);
+    if (best == 0 || cost < least) {
+      best = K;
+      least = cost;
+    }
+  }
+  return best;
+}
 
 // B8 on lane groups of 4 lanes: the group's two pairs each form the sample's
 // product as B4's lane groups do (compose_lane<kComposeLanes>, pair q of the

@@ -10,7 +10,10 @@ package's Pallas kernels in ``ops/propagate_su4_pallas.py`` and
 * :func:`propagate_su4_mc_cuda` (B7, replaces ``_prop_kernel``):
   ``(B, L, P)`` pulses, ``(B, M)`` δ₁, δ₂ and ε → the per-sample product
   as (re, im), each ``(B, M, 4, 4)``.  No backward, as the JAX package's
-  ``propagate_su4_mc_pallas`` has none.
+  ``propagate_su4_mc_pallas`` has none.  Each launch runs under a plan
+  (:func:`propagate_su4_plan`): a sample's segments split into K chunks,
+  one thread each, combined through shared memory; K = 1, one thread per
+  sample, for launches of many waves.
 * :func:`mean_fidelity_su4_cuda` (B6, replaces ``_fid_kernel``): the same
   and ``(B, 4, 4)`` target re and im → ``(B,)`` per-target mean
   entanglement fidelity.  Differentiable: when an input requires a
@@ -51,6 +54,7 @@ from .propagate_su2 import _MAX_TARGETS, _route
 
 __all__ = [
     "propagate_su4_mc_cuda",
+    "propagate_su4_plan",
     "mean_fidelity_su4_cuda",
     "mean_fidelity_su4_with_product_cuda",
     "su4_objective_vjp_from_product_cuda",
@@ -196,17 +200,29 @@ def _system_args(system: TwoQubitSystem):
     return float(system.xtalk), float(system.coupling), int(system.expm_scaling)
 
 
-def _launch_propagate(pulses, delta1, delta2, epsilon, system):
+def propagate_su4_plan(B: int, M: int, L: int, device=None) -> int:
+    """B7's launch plan on the current card for B targets of M samples of L
+    segments: K, the chunks a sample's segments split into, one thread
+    each (1: one thread per sample)."""
+    lib = load_library("su4")
+    with torch.cuda.device(device):
+        return lib.uqoc_su4_prop_chunks(B, M, L)
+
+
+def _launch_propagate(pulses, delta1, delta2, epsilon, system, chunks: Optional[int] = None):
+    """B7 under the card's plan, or under ``chunks`` = K where given."""
     B, L, P, M = _check(pulses, delta1, delta2, epsilon, system)
     lib = load_library("su4")
     out_re = torch.empty((B, M, 4, 4), dtype=torch.float32, device=pulses.device)
     out_im = torch.empty_like(out_re)
+    args = (pulses.data_ptr(), delta1.data_ptr(), delta2.data_ptr(), epsilon.data_ptr(),
+            out_re.data_ptr(), out_im.data_ptr(), B, L, P, M)
     with torch.cuda.device(pulses.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.uqoc_su4_propagate_mc(
-            pulses.data_ptr(), delta1.data_ptr(), delta2.data_ptr(), epsilon.data_ptr(),
-            out_re.data_ptr(), out_im.data_ptr(), B, L, P, M, *_system_args(system),
-            stream)
+        if chunks is None:
+            err = lib.uqoc_su4_propagate_mc(*args, *_system_args(system), stream)
+        else:
+            err = lib.uqoc_su4_propagate_mc_plan(*args, chunks, *_system_args(system), stream)
     raise_on(lib, err, "propagate_su4_mc")
     propagate_su4_mc_cuda.launches += 1
     return out_re, out_im
