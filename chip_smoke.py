@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 r"""Smoke run of the PyTorch port on one CUDA card: build, check, serve,
-score, train, the two-qubit serving, training and per-gate paths, then time.
+score, train, the two-qubit serving, training and per-gate paths, the
+single-qubit variants, GRAPE, polish and dCRAB, then time.
 
     python3 chip_smoke.py
 
-Fifteen phases, each printing its own line with its seconds:
+Nineteen phases, each printing its own line with its seconds:
 
 1. device: the card, torch and CUDA versions, ``nvidia-smi`` name and power limit;
 2. build: one ``nvcc`` call per source, started together
@@ -71,7 +72,33 @@ Fifteen phases, each printing its own line with its seconds:
     against the JAX package's CPU table, and the ``cz_robust`` and
     ``cz_drive2`` E[F](σ_δ) sweeps (``demo/app.py``) through B7 against
     the JAX package's CPU sweep;
-15. time: each kernel at the shape of each path that runs it, with CUDA
+15. serve-variants: the single-qubit variants ``small_20``, ``length_400``
+    (0.2 · model + base pulse), ``length_100_p4``, ``length_400_p4``,
+    ``length_100_gates`` and ``length_100_gates_p4`` (``demo/app.py``)
+    loaded on the card, the 5 named gates and 3 random targets served in
+    f32 and held against the CPU; a bundle variant's named gates served bit
+    for bit from its bundle, a target off them from its model; both
+    shipped bundles scored through B1 (σ_δ = 1, ε_std 0.05, M = 200 000)
+    within 1.2e-3 of their ``fidelity_finetuned``;
+16. grape: the GRAPE CLI (``workloads/grape_single_qubit.py``) on its
+    config (L = 400, the MLP 4 → 1200 → 1200) with ``--backend pallas``,
+    batch 100, M = 1000, one epoch (100 steps) per band; one step's
+    gradient pallas against xla at that width (``grads_close``); ms per
+    step and the device's busy share; ``--direct`` on X(π), 100 epochs,
+    band 0's eval E[F] rising;
+17. finetune: the per-gate polish CLI (``workloads/finetune_gates.py``) at
+    its defaults from ``length_100`` (5 gates, 1500 steps at M = 8192, eval
+    M = 200 000), no gate worse than its model by 2e-3 and the mean at least
+    1e-3 above it, the bundle read back and served from a variant, ms per
+    polish step; then ``analysis/p4_grape_ceiling.py`` cut to 2 starts × 2
+    gates, 3 bands of 100 steps, eval M = 20 000 (B1/B3/B2 at P = 4);
+18. dcrab: the dCRAB CLI in grad mode at its widths (N = 2000, 600 time
+    steps, 200 samples, 5 rounds), 20 Adam steps, the infidelity falling,
+    the objective on the card within 1e-5 of the CPU's on the same
+    problem, ms and kernel launches per Adam step; nm mode at N = 12, 200
+    iterations.  Plain PyTorch (the JAX package has no kernel here): every
+    counter must stay at 0;
+19. time: each kernel at the shape of each path that runs it, with CUDA
     events (for B1, B2, B3 and B7 also the device's time of the kernels alone,
     each call queued behind a long one: their wrappers' host time exceeds a
     short launch's), beside its plain version, its bound and its ptxas registers,
@@ -83,14 +110,17 @@ Fifteen phases, each printing its own line with its seconds:
     (chunks per sample), blocks, blocks a SM, waves and warps per
     scheduler;
     one row of the ``kernels`` line per kernel and path, with that path's
-    launches (B4 and B5 at both the polish's and the training shape).
+    launches (B4 and B5 at both the polish's and the training shape; B1,
+    B3 and B2 also at slice 2's GRAPE, polish and ceiling shapes, the
+    ceiling's at its default (80, 100, 4, 4096) though its run is cut).
 
 Phases 6–7 are the single-qubit serving path, phase 8's CLI run the
 training path, phases 9–10 the two-qubit serving path, phase 11's CLI run
 the two-qubit training path, phases 12–13 the two-qubit per-gate paths
-(GRAPE, polish) and phase 14 the two-qubit demo variants; the kernels'
-launch counters are set to 0 just before each and read just after, and
-every kernel of the path must have been launched there.  No path runs B8
+(GRAPE, polish), phase 14 the two-qubit demo variants and phases 15–18
+slice 2's paths (the variants, GRAPE, the polish and ceiling, dCRAB); the
+kernels' launch counters are set to 0 just before each and read just
+after, and every kernel of the path must have been launched there.  No path runs B8
 (the JAX package has no caller of its ``_bwd_kernel`` either): its row
 reports phase 5's launches.  Any failure raises and the run exits
 nonzero.  The line before the last is the card's ``nvidia-smi`` name and
@@ -216,12 +246,13 @@ JAX_SU4_TABLE = {
 GRAPE_STEPS = 50
 GRAPE_MIN_EXACT_F = 0.99
 # The per-gate polish path: the JAX CLI's 1500 polish steps (a step takes
-# ~4 ms here), its GRAPE candidates' 2000 steps per stage cut to 50 (a
-# GRAPE step takes ~170 ms, host-bound); the chosen table's mean E[F] over
+# ~4 ms here), its GRAPE candidates' 2000 steps per stage cut to 20 (a
+# GRAPE step takes 170–250 ms, host-bound; 50 until slice 2's phases needed
+# the time); the chosen table's mean E[F] over
 # the select σ may not fall more than POLISH_TOL below the model table's
 # (the best iterate is kept and the model table is a candidate).
 POLISH_STEPS = 1500
-POLISH_GRAPE_STEPS = 50
+POLISH_GRAPE_STEPS = 20
 POLISH_TOL = 2e-3
 # The JAX package's eval_pulse_tables on the CPU on the shipped
 # two_qubit_gates.npz bundle's five L = 40 tables (drive2, XLA path,
@@ -259,6 +290,30 @@ JAX_VARIANT_SWEEP = {
 # cz_drive2's published E[F] at σ_δ = 0.1 / 0.2 / 0.3 (M = 4096, ε_std 0.05;
 # demo/weights/README.md), printed beside the card's
 CZ_DRIVE2_PUBLISHED = {0.1: 0.976, 0.2: 0.934, 0.3: 0.804}
+# Slice 2, the other single-qubit optimizers.  The variants it adds; the
+# shipped bundles scored at σ_δ = 1 within BUNDLE_TOL of their meta's
+# fidelity_finetuned (5 standard errors: 2.2–2.6e-4 per gate, from 20 000
+# draws per gate of the plain version on the CPU)
+SLICE2_VARIANTS = ("small_20", "length_400", "length_100_p4", "length_400_p4",
+                   "length_100_gates", "length_100_gates_p4")
+BUNDLE_MC = 200_000
+BUNDLE_TOL = 1.2e-3
+# GRAPE: the JAX CLI's batch and M at its config's L = 400; direct mode's epochs
+GRAPE_BATCH, GRAPE_MC = 100, 1000
+DIRECT_EPOCHS = 100
+# the finetune CLI from length_100: no gate worse than its model by more than
+# FINETUNE_WORSE_TOL, the 5-gate mean at least FINETUNE_MIN_GAIN above it (the
+# shipped bundle gained 3.2e-3)
+FINETUNE_WORSE_TOL = 2e-3
+FINETUNE_MIN_GAIN = 1e-3
+# the P = 4 ceiling's default shape (16 starts × 5 gates, L = 100, M = 4096),
+# timed even though its run is cut
+CEILING_SHAPE = (80, 100, 4, 4096)
+# dCRAB: Adam steps of the grad CLI; card vs CPU objective
+DCRAB_STEPS = 20
+DCRAB_TOL = 1e-5
+# the SU(2) kernels' names in a profile (B1, B3, B2 and their reductions)
+SU2_KERNEL_KEYS = ("mean_fid_kernel", "propagate_mc", "partials_kernel", "reduce_columns")
 
 
 def quat_tol(L: int) -> float:
@@ -555,11 +610,12 @@ def check_su4_train(gen, dev) -> str:
             f"{worst_85:.3e} (tol {SU4_B8_B5_TOL:.0e})")
 
 
-def step_profile(step, n: int, keys=(), per_call: int = 1) -> dict:
+def step_profile(step, n: int, keys=(), per_call: int = 1, profile: bool = True) -> dict:
     """ms per step on the host clock around ``n`` synchronized calls of
-    ``step()`` (after one warm-up), each ``per_call`` steps, then a profile
-    of 3 calls: the device's kernel time per step and that of the kernels
-    whose names contain one of ``keys``."""
+    ``step()`` (after one warm-up), each ``per_call`` steps, then (unless
+    ``profile`` is False: an eager plain step's ~10⁵ records take the
+    profiler minutes) a profile of 3 calls: the device's kernel time per
+    step and that of the kernels whose names contain one of ``keys``."""
     step()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -567,6 +623,8 @@ def step_profile(step, n: int, keys=(), per_call: int = 1) -> dict:
         step()
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t1) / (n * per_call)
+    if not profile:
+        return {"ms": ms}
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(3):
@@ -612,15 +670,16 @@ def su4_counters() -> dict:
 
 
 def run_path(fn, need):
-    """Counters to 0, ``fn()``, counters read: fails unless every kernel in
-    ``need`` was launched.  Returns ``(fn's result, launches)``."""
-    counters = su4_counters()
+    """Every kernel's counter to 0, ``fn()``, counters read: fails unless
+    every kernel in ``need`` was launched.  Returns ``(fn's result,
+    launches)``."""
+    counters = {**su2_counters(), **su4_counters()}
     for c in counters.values():
         c.launches = 0
     out = fn()
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in counters.items()}
-    if min(launches[k] for k in need) < 1:
+    if need and min(launches[k] for k in need) < 1:
         raise AssertionError(f"a kernel of {need} was not launched on the path: {launches}")
     return out, launches
 
@@ -937,6 +996,338 @@ def serve_su4_variants(dev) -> dict:
     return {"launches": launches, "pulses": pulses, "packed": packed, "err0": err0,
             "errmc": errmc, "sweep_err": worst_sweep, "d2_pulses": d2["pulses"],
             "t": time.perf_counter() - t0}
+
+
+def su2_counters() -> dict:
+    from universal_quantum_optimal_control_tpu_torch.ops import propagate_su2 as t2
+    return {"B1": t2.mean_fidelity_cuda, "B2": t2.propagate_mc_vjp_cuda,
+            "B3": t2.propagate_mc_cuda}
+
+
+def serve_variants(dev) -> dict:
+    """The single-qubit variants slice 2 adds: each served on the card in
+    f32 for the 5 named gates and 3 random targets, held against the CPU;
+    the bundle variants' named gates served bit for bit from the bundle and
+    a target off them from the model; both shipped bundles scored through
+    B1 at σ_δ = 1 against their ``fidelity_finetuned``."""
+    from universal_quantum_optimal_control_tpu_torch.core import rotation_vector_to_quat
+    from universal_quantum_optimal_control_tpu_torch.demo import app
+    from universal_quantum_optimal_control_tpu_torch.workloads import finetune_gates as ft
+
+    rng = np.random.default_rng(7)
+    axes = rng.standard_normal((3, 3))
+    axes /= np.linalg.norm(axes, axis=1, keepdims=True)
+    rand_rv = np.concatenate([axes, rng.uniform(0.0, 2 * np.pi, (3, 1))], axis=1)
+
+    def run():
+        from universal_quantum_optimal_control_tpu_torch.data import named_gate_rotation_vectors
+        gates = named_gate_rotation_vectors(device=dev)
+        rv = torch.cat([torch.stack(list(gates.values())),
+                        torch.tensor(rand_rv, dtype=torch.float32, device=dev)])
+        rows, scores = {}, {}
+        for v in SLICE2_VARIANTS:
+            t1 = time.perf_counter()
+            pipe = app.load_pipeline(v, device=dev, dtype=torch.float32)
+            pulses = pipe(rv)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t1
+            L, P = pipe.model.max_pulses, pipe.model.param_dim
+            if tuple(pulses.shape) != (8, L, P) or not bool(torch.isfinite(pulses).all()):
+                raise AssertionError(f"{v}: pulses {tuple(pulses.shape)}, finite "
+                                     f"{bool(torch.isfinite(pulses).all())}")
+            if not bool((pulses[..., -1] >= 0).all()):
+                raise AssertionError(f"{v}: tau < 0")
+            cpu = app.load_pipeline(v, device="cpu", dtype=torch.float32)(rv.cpu())
+            err = wrapped_phi_err(pulses.cpu(), cpu)
+            if not err <= SERVE_TOL:
+                raise AssertionError(f"{v}: card f32 vs CPU f32 {err:.3e} > {SERVE_TOL}")
+            row = {"shape": (L, P), "err": err, "load_s": t_load}
+            bundle = app.MODEL_VARIANTS[v].get("gate_bundle")
+            if bundle:
+                tables, meta = ft.load_gate_bundle(bundle)
+                for g, grv in zip(meta["gates"], meta["rotation_vectors"]):
+                    served, _ = app.compute_pulses(v, *grv, device=dev, dtype=torch.float32)
+                    if not np.array_equal(served, tables[g]):
+                        raise AssertionError(f"{v} does not serve its bundle's table for {g}")
+                off, _ = app.compute_pulses(v, *rand_rv[0], device=dev, dtype=torch.float32)
+                want = pipe(torch.tensor(rand_rv[:1], dtype=torch.float32, device=dev))
+                if not (wrapped_phi_err(torch.from_numpy(off), want[0].cpu()) <= 1e-5
+                        and not any(np.array_equal(off, t) for t in tables.values())):
+                    raise AssertionError(f"{v}: a target off the named gates is not served by "
+                                         f"its model")
+                names = meta["gates"]
+                q = rotation_vector_to_quat(torch.tensor(meta["rotation_vectors"],
+                                                         dtype=torch.float32, device=dev))
+                table = torch.as_tensor(np.stack([tables[g] for g in names]), device=dev)
+                f = ft.evaluate_tables(table, q, monte_carlo=BUNDLE_MC, delta_std=1.0,
+                                       epsilon_std=0.05, backend="pallas")
+                diff = f - np.asarray(meta["fidelity_finetuned"])
+                if not float(np.abs(diff).max()) <= BUNDLE_TOL:
+                    raise AssertionError(f"{v}: bundle E[F] {f} vs fidelity_finetuned "
+                                         f"{meta['fidelity_finetuned']}: beyond {BUNDLE_TOL}")
+                scores[v] = {"names": names, "f": f, "diff": diff, "table": table, "q": q}
+            rows[v] = row
+        return rows, scores
+
+    t0 = time.perf_counter()
+    (rows, scores), launches = run_path(run, ["B1"])
+    for v, r in rows.items():
+        print(f"  {v} (L = {r['shape'][0]}, P = {r['shape'][1]}): load and first batch "
+              f"{r['load_s']:.2f} s; card f32 vs CPU f32 {r['err']:.2e}")
+    for v, s in scores.items():
+        print(f"  {v} bundle at sigma 1 through B1 (M = {BUNDLE_MC}): " + ", ".join(
+            f"{g} {f:.5f} ({d:+.5f})" for g, f, d in zip(s["names"], s["f"], s["diff"])))
+    return {"launches": launches, "rows": rows, "scores": scores,
+            "t": time.perf_counter() - t0}
+
+
+def grape_su2(dev) -> dict:
+    """The single-qubit GRAPE path: the CLI on its config (L = 400, the MLP
+    4 → 1200 → 1200) with ``--backend pallas``, batch 100, M = 1000, one
+    epoch (100 steps) per band; one step's gradient pallas against xla at
+    that width (``grads_close``, against f64 on the pulses' cotangent); ms
+    per step and the device's busy share; then ``--direct`` on X(π), band
+    0's eval E[F] rising."""
+    from universal_quantum_optimal_control_tpu_torch.data import build_su2_dataset
+    from universal_quantum_optimal_control_tpu_torch.models import GRAPE, normalize_pulse_space
+    from universal_quantum_optimal_control_tpu_torch.ops.propagate_su2 import \
+        mean_fidelity_plain
+    from universal_quantum_optimal_control_tpu_torch.training import (CurriculumBand,
+                                                                      TrainConfig, Trainer)
+    from universal_quantum_optimal_control_tpu_torch.utils import load_model_params
+    from universal_quantum_optimal_control_tpu_torch.workloads import grape_single_qubit as gcli
+
+    B, M = GRAPE_BATCH, GRAPE_MC
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--device", "cuda", "--backend", "pallas", "--batch_size", str(B),
+                "--monte_carlo", str(M), "--num_epoch", "1", "--save_path", f"{tmp}/mlp"]
+        history, launches = run_path(lambda: gcli.main(argv), ["B1", "B2", "B3"])
+        t_cli = time.perf_counter() - t0
+        losses = [x for b in history["bands"] for x in b["train_loss"]]
+        fids = [x for b in history["bands"] for x in b["eval_fid"]]
+        if len(history["bands"]) != 3 or len(losses) != 3:
+            raise AssertionError(f"expected 3 bands × 1 epoch, got {history}")
+        if not all(math.isfinite(x) for x in losses) or not all(0.0 < x <= 1.0 for x in fids):
+            raise AssertionError(f"GRAPE losses {losses}, eval E[F] {fids}")
+        exports = sorted(Path(tmp, "mlp").glob("*_pulses.npz"))
+        if len(exports) != 3:
+            raise AssertionError(f"GRAPE pulse exports {exports}")
+        with np.load(exports[-1]) as z:
+            if z["pulses"].shape != (B * B, 400, 2) or not np.isfinite(z["pulses"]).all():
+                raise AssertionError(f"{exports[-1].name}: {z['pulses'].shape}")
+        t1 = time.perf_counter()
+        dargv = ["--device", "cuda", "--backend", "pallas", "--direct", "--num_epoch",
+                 str(DIRECT_EPOCHS), "--learning_rate", "3e-3", "--save_path", f"{tmp}/direct"]
+        dhist, dlaunches = run_path(lambda: gcli.main(dargv), ["B1", "B2", "B3"])
+        t_direct = time.perf_counter() - t1
+    d0 = dhist["bands"][0]["eval_fid"]
+    if not d0[-1] > d0[0]:
+        raise AssertionError(f"direct GRAPE band 0 eval E[F] did not rise: {d0[0]} → {d0[-1]}")
+    print(f"  CLI (MLP): 3 bands × 1 epoch × {B} steps at batch {B}, M = {M}, L = 400 in "
+          f"{t_cli:.2f} s; train loss " + " ".join(f"{x:.4f}" for x in losses)
+          + "; eval E[F] " + " ".join(f"{x:.5f}" for x in fids) + f"; launches {launches}")
+    print(f"  CLI (--direct, X(pi)): 3 bands × {DIRECT_EPOCHS} steps in {t_direct:.2f} s; band "
+          f"0 eval E[F] {d0[0]:.5f} → {d0[-1]:.5f}, best per band " + " / ".join(
+              f"{b['best_fid']:.5f}" for b in dhist["bands"]) + f"; launches {dlaunches}")
+
+    # one step's gradient through pallas and xla from the same weights and draws
+    cfg = load_model_params(gcli.DEFAULT_CONFIG)
+    model = GRAPE(pulse_space=normalize_pulse_space(cfg["pulse_space"]),
+                  num_pulses=cfg["num_pulses"], device=dev)
+    model.init_like_flax(torch.Generator(device=dev).manual_seed(5))
+    rv, qt = build_su2_dataset(torch.Generator().manual_seed(11), B, random=True, device=dev)
+    trainers = {b: Trainer(model, TrainConfig(monte_carlo=M, batch_size=B, backend=b),
+                           device=dev) for b in ("pallas", "xla")}
+    band = CurriculumBand(1.0)
+    errors = trainers["pallas"].sample_errors(B, band)
+    names = [n for n, _ in model.named_parameters()]
+    grads = {}
+    for b, tr in trainers.items():
+        loss, _ = tr.objective(rv, qt, errors)
+        grads[b] = torch.autograd.grad(loss, list(model.parameters()))
+    # the step in f64 from the pulses on (loss and pulse cotangent), chained
+    # through the same model Jacobian
+    tr = trainers["xla"]
+    pulses = model(rv)
+    p64 = pulses.detach().double().requires_grad_(True)
+    F64 = mean_fidelity_plain(p64, qt.double(), *(e.double() for e in errors))
+    (dp64,) = torch.autograd.grad(tr._loss_of_mean_fid(torch.mean(F64)), p64)
+    g64 = torch.autograd.grad(pulses, list(model.parameters()), dp64.float())
+    worst = grads_close("GRAPE step pallas vs xla", names, (1e-4,) * len(names),
+                        grads["pallas"], grads["xla"], [g.double() for g in g64])
+    flat = {b: torch.cat([g.flatten() for g in gs]) for b, gs in grads.items()}
+    rel = float((flat["pallas"] - flat["xla"]).norm() / flat["xla"].norm())
+    print(f"  one step at L = 400, batch {B}, M = {M}: |g_pallas - g_xla| max "
+          f"{worst[0]:.3e} (vs f64: pallas {worst[1]:.3e}, xla {worst[2]:.3e}), "
+          f"{rel:.3e} of the norm |g| {float(flat['xla'].norm()):.4e}")
+
+    step = {}
+    for b, n in (("pallas", 20), ("xla", 2)):
+        tr = trainers[b]
+        step[b] = step_profile(lambda: tr.train_step(rv, qt, tr.sample_errors(B, band)), n,
+                               SU2_KERNEL_KEYS, profile=b == "pallas")
+    sp = step["pallas"]
+    print(f"  train step: pallas {sp['ms']:.2f} ms (kernels {sp['device_ms']:.3f} ms, "
+          f"{100 * sp['device_ms'] / sp['ms']:.1f} % busy; B1/B2/B3 {sp['kernel_ms']:.3f} ms), "
+          f"xla {step['xla']['ms']:.2f} ms")
+    model.eval()
+    with torch.no_grad():
+        pulses = model(rv).contiguous()
+    return {"launches": launches, "direct_launches": dlaunches, "t_cli": t_cli,
+            "t_direct": t_direct, "step": step, "grad": worst, "rel": rel, "pulses": pulses,
+            "q": qt.contiguous(), "errors": errors, "direct": (d0[0], d0[-1])}
+
+
+def finetune_su2(dev) -> dict:
+    """The single-qubit per-gate polish: the finetune CLI at its defaults
+    from ``length_100`` (5 gates, 1500 steps at M = 8192, lr 3e-3, eval
+    M = 200 000) into a tempdir, each gate no worse than its model and the
+    mean gain ≥ FINETUNE_MIN_GAIN; the bundle read back and served from a
+    variant; ms per polish step; then the P = 4 ceiling, cut."""
+    from universal_quantum_optimal_control_tpu_torch.analysis import p4_grape_ceiling as pc
+    from universal_quantum_optimal_control_tpu_torch.core import rotation_vector_to_quat
+    from universal_quantum_optimal_control_tpu_torch.demo import app
+    from universal_quantum_optimal_control_tpu_torch.workloads import finetune_gates as ft
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "length100_gates.npz"
+        res, launches = run_path(lambda: ft.main(["--device", "cuda", "--out", str(out)]),
+                                 ["B1", "B2", "B3"])
+        t_cli = time.perf_counter() - t0
+        tables, meta = ft.load_gate_bundle(str(out))
+        names = res["names"]
+        gain = res["f_finetuned"] - res["f_model"]
+        for i, g in enumerate(names):
+            if not gain[i] >= -FINETUNE_WORSE_TOL:
+                raise AssertionError(f"finetune {g}: {res['f_finetuned'][i]:.5f} below its "
+                                     f"model's {res['f_model'][i]:.5f}")
+            if not np.array_equal(tables[g], res["pulses"][i].cpu().numpy()):
+                raise AssertionError(f"bundle table of {g} is not the polished table")
+        if not float(gain.mean()) >= FINETUNE_MIN_GAIN:
+            raise AssertionError(f"finetune mean gain {float(gain.mean()):.5f} < "
+                                 f"{FINETUNE_MIN_GAIN}")
+        spec = dict(app.MODEL_VARIANTS["length_100_gates"], gate_bundle=str(out))
+        app.MODEL_VARIANTS["smoke_gates"] = spec
+        try:
+            for g, grv in zip(meta["gates"], meta["rotation_vectors"]):
+                served, _ = app.compute_pulses("smoke_gates", *grv, device=dev)
+                if not np.array_equal(served, tables[g]):
+                    raise AssertionError(f"the new bundle is not served for {g}")
+        finally:
+            del app.MODEL_VARIANTS["smoke_gates"]
+    shipped = ft.load_gate_bundle(app.MODEL_VARIANTS["length_100_gates"]["gate_bundle"])[1]
+    for i, g in enumerate(names):
+        print(f"  {g}: model {res['f_model'][i]:.5f} → {res['f_finetuned'][i]:.5f} "
+              f"({gain[i]:+.5f}); the shipped bundle's {shipped['fidelity_finetuned'][i]:.4f}")
+    print(f"  CLI: 1500 polish steps, 5 gates, M = 8192, evals at M = 200 000 in {t_cli:.2f} s;"
+          f" mean gain {float(gain.mean()):+.5f} (the shipped bundle's 3.2e-3); launches "
+          f"{launches}")
+
+    # ms per polish step at the CLI's shape: 5 gates, L = 100, P = 2, M = 8192
+    pipe = app.load_pipeline("length_100", device=dev)
+    rv = torch.tensor(meta["rotation_vectors"], device=dev)
+    pulses0 = pipe(rv).float().contiguous()
+    q = rotation_vector_to_quat(rv).contiguous()
+    space = ft.clamp_tau_nonnegative(pipe.model.pulse_space)
+    prof = step_profile(lambda: ft.finetune_pulse_tables(
+        pulses0, q, space, steps=5, monte_carlo=8192, log_every=10**9), 4, SU2_KERNEL_KEYS,
+        per_call=5)
+    print(f"  polish step (5 gates, L = 100, P = 2, M = 8192): {prof['ms']:.2f} ms, kernels "
+          f"{prof['device_ms']:.3f} ms ({100 * prof['device_ms'] / prof['ms']:.1f} % busy), "
+          f"B1/B2/B3 {prof['kernel_ms']:.3f} ms")
+
+    # the P = 4 ceiling, cut: 2 starts × 2 gates, 3 bands × 100 steps, eval M = 20 000
+    t1 = time.perf_counter()
+    argv = ["--device", "cuda", "--starts", "2", "--gates", "X,H", "--curriculum",
+            "0.4:100,0.7:100,1.0:100", "--eval_mc", "20000"]
+    (rows, best), claunches = run_path(lambda: pc.main(argv), ["B1", "B2", "B3"])
+    t_ceiling = time.perf_counter() - t1
+    for g, fbest, fmean, j in rows:
+        if not 0.0 < fmean <= fbest <= 1.0 or best[g].shape != (100, 4):
+            raise AssertionError(f"ceiling {g}: best {fbest}, mean {fmean}, "
+                                 f"{best[g].shape}")
+    print(f"  ceiling (cut): " + ", ".join(f"{g} best {b:.4f}, mean {m:.4f}"
+                                           for g, b, m, _ in rows)
+          + f" in {t_ceiling:.2f} s; launches {claunches}")
+    return {"launches": launches, "ceiling_launches": claunches, "t_cli": t_cli,
+            "t_ceiling": t_ceiling, "step": prof, "gain": gain, "pulses0": pulses0, "q": q}
+
+
+def dcrab_su2(dev) -> dict:
+    """dCRAB: the CLI in grad mode at its widths (N = 2000, 600 time steps,
+    200 samples, 5 rounds), DCRAB_STEPS Adam steps; the objective on the
+    card against the CPU's on the same problem; ms per Adam step and its
+    kernel launches; then nm mode at N = 12, 200 iterations.  No kernel of
+    the port runs here: every counter must stay at 0."""
+    from universal_quantum_optimal_control_tpu_torch.core.su2 import axis_angle_to_quat
+    from universal_quantum_optimal_control_tpu_torch.optimizers import dcrab
+    from universal_quantum_optimal_control_tpu_torch.workloads import dcrab_single_qubit as dcli
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--device", "cuda", "--mode", "grad", "--steps", str(DCRAB_STEPS),
+                "--out", f"{tmp}/grad.npz"]
+        res, launches = run_path(lambda: dcli.main(argv), [])
+        t_grad = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        nargv = ["--device", "cuda", "--mode", "nm", "--n_modes", "12", "--maxiter", "200",
+                 "--out", f"{tmp}/nm.npz"]
+        nm, nlaunches = run_path(lambda: dcli.main(nargv), [])
+        t_nm = time.perf_counter() - t1
+    if any(launches.values()) or any(nlaunches.values()):
+        raise AssertionError(f"dCRAB launched a kernel of the port: {launches} {nlaunches}")
+    losses = res["losses"]
+    if not (len(losses) == DCRAB_STEPS and losses[-1] < losses[0]):
+        raise AssertionError(f"dCRAB infidelity did not fall: {losses[0]} → {losses[-1]}")
+    for name, r in (("grad", res), ("nm", nm)):
+        if not 0.0 < r["fidelity"] <= 2.0 / 3.0 + 1e-6:
+            raise AssertionError(f"dCRAB {name} best fidelity {r['fidelity']} outside (0, 2/3]")
+
+    # the objective on the card against the CPU's, on the CLI's problem
+    cfg = dcrab.DcrabConfig(T=6.0, dt=0.01, n_modes=2000, rounds=5, samples=200, w_min=0.1,
+                            w_max=2000 * np.pi, seed=42)
+    q_t = axis_angle_to_quat(torch.tensor([1.0, 0.0, 0.0]), torch.tensor(math.pi / 2))
+    cpu = dcrab._setup(q_t, cfg, device="cpu")
+    card = dcrab.DcrabProblem(*(v.to(dev) for v in cpu))
+    # at every round's start and at the CLI's best parameters (its round's ω)
+    errs = []
+    best = tuple(torch.from_numpy(np.asarray(res[k], np.float32)) for k in ("params", "omegas"))
+    for x, w in ((cpu.x0, cpu.omegas), best):
+        with torch.no_grad():
+            a = dcrab.average_infidelity(x, cpu.t, w, cpu.q_target, cpu.delta, cpu.eps, cfg.dt)
+            b = dcrab.average_infidelity(x.to(dev), card.t, w.to(dev), card.q_target,
+                                         card.delta, card.eps, cfg.dt).cpu()
+        errs.append(float((a - b).abs().max()))
+    if not max(errs) <= DCRAB_TOL:
+        raise AssertionError(f"dCRAB objective card vs CPU {max(errs):.3e} > {DCRAB_TOL}")
+
+    # ms per Adam step and the launches it takes (the profiler's kernel count)
+    dcrab.run_adam(card, cfg.dt, 1, 0.02)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    n = 5
+    dcrab.run_adam(card, cfg.dt, n, 0.02)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t1) / n
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        dcrab.run_adam(card, cfg.dt, 2, 0.02)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and "#" not in e.key]
+    kernels_per_step = sum(e.count for e in events) / 2
+    dev_ms = sum(e.self_device_time_total for e in events) / 2e3
+    print(f"  grad CLI: {DCRAB_STEPS} Adam steps, N = 2000, 600 time steps, 200 samples, 5 "
+          f"rounds in {t_grad:.2f} s; summed infidelity {losses[0]:.5f} → {losses[-1]:.5f}; "
+          f"best fidelity {res['fidelity']:.5f}; card vs CPU objective {max(errs):.2e} (tol "
+          f"{DCRAB_TOL:.0e})")
+    print(f"  Adam step: {step_ms:.2f} ms, {kernels_per_step:.0f} kernel launches, kernels "
+          f"{dev_ms:.3f} ms ({100 * dev_ms / step_ms:.1f} % busy)")
+    print(f"  nm CLI: N = 12, 200 iterations in {t_nm:.2f} s; best fidelity {nm['fidelity']:.5f}")
+    return {"t_grad": t_grad, "t_nm": t_nm, "step_ms": step_ms, "kernels": kernels_per_step,
+            "busy": dev_ms / step_ms, "err": max(errs), "losses": (losses[0], losses[-1])}
 
 
 def main() -> int:
@@ -1442,7 +1833,43 @@ def main() -> int:
           f"{SU4_MC_TOL}); sweeps within {vq['sweep_err']:.2e} (tol {VARIANT_SWEEP_TOL}); "
           f"launches {vq['launches']}")
 
-    # 15. time each kernel at each path's shape: one row per (kernel, path),
+    # 15. serve-variants — the single-qubit variants of slice 2: counters to
+    # 0 inside
+    t0 = time.perf_counter()
+    sv = serve_variants(dev)
+    worst_bundle = max(float(np.abs(s["diff"]).max()) for s in sv["scores"].values())
+    phase("serve-variants", t0, f"{len(sv['rows'])} variants, card f32 vs CPU f32 within "
+          f"{max(r['err'] for r in sv['rows'].values()):.2e} (tol {SERVE_TOL:.0e}); bundles at "
+          f"sigma 1 within {worst_bundle:.2e} of their fidelity_finetuned (tol {BUNDLE_TOL}); "
+          f"launches {sv['launches']}")
+
+    # 16. grape — the single-qubit GRAPE path: counters to 0 inside
+    t0 = time.perf_counter()
+    g2 = grape_su2(dev)
+    phase("grape", t0, f"L = 400, batch {GRAPE_BATCH}, M = {GRAPE_MC}: CLI {g2['t_cli']:.2f} s, "
+          f"ms per step pallas {g2['step']['pallas']['ms']:.2f}, xla "
+          f"{g2['step']['xla']['ms']:.2f}; pallas vs xla gradient max {g2['grad'][0]:.3e} "
+          f"({g2['rel']:.3e} of the norm); direct X(pi) band 0 E[F] {g2['direct'][0]:.4f} → "
+          f"{g2['direct'][1]:.4f}; launches {g2['launches']}")
+
+    # 17. finetune — the per-gate polish and the P = 4 ceiling: counters to 0
+    # inside
+    t0 = time.perf_counter()
+    f2 = finetune_su2(dev)
+    phase("finetune", t0, f"5 gates, 1500 steps at M = 8192: mean gain "
+          f"{float(f2['gain'].mean()):+.5f} (gate {FINETUNE_MIN_GAIN}), worst gate "
+          f"{float(f2['gain'].min()):+.5f} (gate -{FINETUNE_WORSE_TOL}); CLI {f2['t_cli']:.2f} s, "
+          f"ms per polish step {f2['step']['ms']:.2f}; ceiling (cut) {f2['t_ceiling']:.2f} s; "
+          f"launches {f2['launches']}, ceiling {f2['ceiling_launches']}")
+
+    # 18. dcrab — plain PyTorch, no kernel: counters to 0 inside, all stay 0
+    t0 = time.perf_counter()
+    dq = dcrab_su2(dev)
+    phase("dcrab", t0, f"grad CLI {dq['t_grad']:.2f} s ({DCRAB_STEPS} steps), ms per Adam step "
+          f"{dq['step_ms']:.2f} ({dq['kernels']:.0f} launches); card vs CPU objective "
+          f"{dq['err']:.2e} (tol {DCRAB_TOL:.0e}); nm CLI {dq['t_nm']:.2f} s")
+
+    # 19. time each kernel at each path's shape: one row per (kernel, path),
     # its launches those of that path's run
     t0 = time.perf_counter()
     csrc = "universal_quantum_optimal_control_tpu_torch/ops/csrc/"
@@ -1468,7 +1895,9 @@ def main() -> int:
     launches = {"serve": serve_launches, "train": train_launches, "serve-su4": su4_launches,
                 "train-su4": tq["launches"], "check-su4-train": check_launches,
                 "grape-su4": gq["launches"], "polish-su4": pq["launches"],
-                "serve-su4-variants": vq["launches"]}
+                "serve-su4-variants": vq["launches"], "serve-variants": sv["launches"],
+                "grape": g2["launches"], "finetune": f2["launches"],
+                "ceiling": f2["ceiling_launches"]}
 
     lib2 = _build.load_library("su2")
     lib4, lib4b = _build.load_library("su4"), _build.load_library("su4_bwd")
@@ -1546,10 +1975,14 @@ def main() -> int:
     def fid_row(path, p_, qt_, d_, e_, iters):
         B_, L_, P_ = p_.shape
         M_ = d_.shape[1]
-        err = float((mean_fidelity_cuda(p_, qt_, d_, e_)
-                     - mean_fidelity_plain(p_, qt_, d_, e_)).abs().max())
-        if not err <= FID_TOL:
-            raise AssertionError(f"B1 at the {path} shape: {err:.3e} > {FID_TOL}")
+        plain = mean_fidelity_plain(p_, qt_, d_, e_)
+        err = float((mean_fidelity_cuda(p_, qt_, d_, e_) - plain).abs().max())
+        tol = FID_TOL
+        if L_ > 100:  # the L = 100 rule past it: twice the plain f32 error against f64
+            tol = max(tol, 2 * max_err(plain, mean_fidelity_plain(
+                *(t.double() for t in (p_, qt_, d_, e_)))))
+        if not err <= tol:
+            raise AssertionError(f"B1 at the {path} shape: {err:.3e} > {tol:.2e}")
         r = row("B1", path, (B_, L_, P_, M_), err,
                 time_ms(lambda: mean_fidelity_cuda(p_, qt_, d_, e_), iters),
                 time_ms(lambda: mean_fidelity_plain(p_, qt_, d_, e_), 3),
@@ -1727,10 +2160,53 @@ def main() -> int:
                           (torch.as_tensor(vq["d2_pulses"], device=dev)[None].contiguous(),
                            *((n * st).reshape(1, -1).contiguous() for n in nv[:2]),
                            (0.05 * nv[2]).reshape(1, -1).contiguous()), sysd)
+    # slice 2: B1 at the bundles' scoring shape; B1, B3 and B2 at the GRAPE
+    # step's, the polish step's and the ceiling's default shape (random P = 4
+    # tables in its box, σ_δ = 0.4 draws)
+    def su2_train_rows(path, p_, qt_, d_, e_):
+        """B1, B3 and B2 (on B3's product, under a random cotangent) at a
+        training shape."""
+        B_, L_, P_ = p_.shape
+        M_ = d_.shape[1]
+        g_ = torch.randn((B_, M_, 4), generator=gen, device=dev)
+        _, got_, want_ = check_vjp(f"at the {path} shape", p_, d_, e_, g_)
+        q_ = propagate_mc_cuda(p_, d_, e_)
+        b2 = row("B2", path, (B_, L_, P_, M_),
+                 max(float((a - b).abs().max()) for a, b in zip(got_, want_)),
+                 time_ms(lambda: propagate_mc_vjp_cuda(p_, d_, e_, g_, q_), 20),
+                 time_ms(lambda: propagate_mc_vjp_plain(p_, d_, e_, g_), 2),
+                 vjp_bound(B_, L_, P_, M_))
+        b2["device_ms"] = device_ms(lambda: propagate_mc_vjp_cuda(p_, d_, e_, g_, q_))
+        b2["libm_samples"] = libm_samples(p_, d_, e_)
+        return [fid_row(path, p_, qt_, d_, e_, 20), prop_row(path, p_, d_, e_, 20), b2]
+
+    slice2_rows = []
+    for v in ("length_100_gates", "length_100_gates_p4"):
+        s_ = sv["scores"][v]
+        sgen2 = torch.Generator(device=dev).manual_seed(17)
+        d_b = torch.randn((5, BUNDLE_MC), generator=sgen2, device=dev)
+        e_b = 0.05 * torch.randn((5, BUNDLE_MC), generator=sgen2, device=dev)
+        slice2_rows.append(fid_row("serve-variants", s_["table"].contiguous(), s_["q"], d_b,
+                                   e_b, 20))
+    slice2_rows += su2_train_rows("grape", g2["pulses"], g2["q"], *g2["errors"])
+    fgen = torch.Generator(device=dev).manual_seed(19)
+    d_f = torch.randn((5, 8192), generator=fgen, device=dev)
+    e_f = 0.05 * torch.randn((5, 8192), generator=fgen, device=dev)
+    slice2_rows += su2_train_rows("finetune", f2["pulses0"], f2["q"], d_f, e_f)
+    Bc, Lc, Pc, Mc = CEILING_SHAPE
+    box = ((-3.15, 3.15), (0.0, 1.0), (-5.0, 5.0), (0.1, 0.5))
+    lo_c = torch.tensor([a for a, _ in box], device=dev)
+    hi_c = torch.tensor([b for _, b in box], device=dev)
+    p_c = (lo_c + (hi_c - lo_c) * (0.05 + 0.9 * torch.rand((Bc, Lc, Pc), generator=fgen,
+                                                             device=dev))).contiguous()
+    q_c = f2["q"][torch.arange(Bc, device=dev) % 5].contiguous()
+    d_c = 0.4 * torch.randn((Bc, Mc), generator=fgen, device=dev)
+    e_c = 0.05 * torch.randn((Bc, Mc), generator=fgen, device=dev)
+    slice2_rows += su2_train_rows("ceiling", p_c, q_c, d_c, e_c)
     kernels = [fid_row("serve", pulses, q_t, delta, eps, 20), b1_train, b2_train,
                prop_row("serve", p1, d1, e1, 20), prop_row("train", pt, dt_, et_, 50),
                b6_row, b7_row, b4_row, b5_row, b6_train, b8_row, b7_grape, b4_pol, b5_pol,
-               b6_pol, b6_var, b7_var]
+               b6_pol, b6_var, b7_var] + slice2_rows
     for k in kernels:
         occ = k.get("occupancy")
         if occ and "chunks" in occ:

@@ -12,6 +12,11 @@ whose angles pass the polynomial sincos's range takes libm's, and holds;
 B1 and B3 at the longest row the card's shared memory takes, and one
 chunk past it; B1 captured in a CUDA graph, then called eagerly.
 
+Slice 2's shapes: B1, B3 and B2 at the GRAPE step's (100, 400, 2, 1000)
+and the P = 4 polish's (5, 100, 4, 8192), each input in its pulse box, and
+one GRAPE training step on the card (L = 400, B1 forward, B3 + B2
+backward, one launch each).
+
 B4, B6, B5 and B8 run each sample on a group of four lanes; their cases
 include M = 4096 + 3, whose last block ends inside a group of samples, and
 two launches on the same inputs must agree bit for bit.
@@ -614,3 +619,85 @@ def test_b7_plan_beside_b4_lanes(card):
     if n_sm == 132:
         assert [t4.propagate_su4_plan(*shape) for shape in
                 [(1, 4096, 20), (1, 40_000, 100), (1, 2_000_000, 20)]] == [4, 2, 1]
+
+
+# Slice 2's shapes: GRAPE's step (100, 400, 2, 1000), τ in its box [0.035,
+# 0.07], and the P = 4 polish (5, 100, 4, 8192) in the (φ, Ω, Δ, τ) box;
+# atol widened to twice the plain f32 version's own error against f64.
+
+SLICE2_BOXES = {2: ((-3.15, 3.15), (0.035, 0.07)),
+                4: ((-3.15, 3.15), (0.0, 1.0), (-5.0, 5.0), (0.1, 0.5))}
+
+
+def slice2_inputs(B, L, P, M, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    box = torch.tensor(SLICE2_BOXES[P], device=dev)
+    u = torch.rand((B, L, P), generator=g, device=dev)
+    pulses = (box[:, 0] + (box[:, 1] - box[:, 0]) * u).contiguous()
+    delta = torch.randn((B, M), generator=g, device=dev)
+    eps = 0.05 * torch.randn((B, M), generator=g, device=dev)
+    q_t = torch.nn.functional.normalize(torch.randn((B, 4), generator=g, device=dev), dim=-1)
+    return pulses, q_t, delta, eps
+
+
+@pytest.mark.parametrize("shape", [(100, 400, 2, 1000), (5, 100, 4, 8192)])
+def test_b1_b3_b2_at_slice_2_shapes(card, shape):
+    pulses, q_t, delta, eps = slice2_inputs(*shape, card)
+    B, L, P, M = shape
+    f = tk.mean_fidelity_cuda(pulses, q_t, delta, eps)
+    f32 = tk.mean_fidelity_plain(pulses, q_t, delta, eps)
+    f64 = tk.mean_fidelity_plain(*(t.double() for t in (pulses, q_t, delta, eps)))
+    torch.testing.assert_close(f, f32, rtol=0,
+                               atol=max(TOL, 2 * float((f32.double() - f64).abs().max())))
+    q = tk.propagate_mc_cuda(pulses, delta, eps)
+    torch.testing.assert_close(q, tk.propagate_mc_plain(pulses, delta, eps), rtol=0,
+                               atol=max(TOL, 1e-6 * L))
+    g = torch.randn((B, M, 4), generator=torch.Generator(device=card).manual_seed(5),
+                    device=card)
+    got = tk.propagate_mc_vjp_cuda(pulses, delta, eps, g, q)
+    torch.cuda.synchronize()
+    exact = tk.propagate_mc_vjp_plain(*(t.double() for t in (pulses, delta, eps, g)))
+    assert_vjp_close(got, tk.propagate_mc_vjp_plain(pulses, delta, eps, g), exact)
+
+
+def test_grape_step_on_the_card(card):
+    """One GRAPE training step at L = 400 through B1 (backward B3 + B2): the
+    pulses' gradient within the rule above of autograd through the plain
+    version, and one launch of each kernel per step."""
+    from universal_quantum_optimal_control_tpu_torch.core import rotation_vector_to_quat
+    from universal_quantum_optimal_control_tpu_torch.models import GRAPE
+    from universal_quantum_optimal_control_tpu_torch.training import TrainConfig, Trainer
+
+    B, M = 16, 512
+    model = GRAPE(pulse_space=(("phi", (-3.15, 3.15)), ("tau", (0.035, 0.07))),
+                  num_pulses=400, device=card)
+    model.init_like_flax(torch.Generator(device=card).manual_seed(0))
+    g = torch.Generator(device=card).manual_seed(1)
+    rv = torch.cat([torch.nn.functional.normalize(torch.randn((B, 3), generator=g, device=card),
+                                                  dim=-1),
+                    6.0 * torch.rand((B, 1), generator=g, device=card)], dim=-1)
+    qt = rotation_vector_to_quat(rv).contiguous()
+    delta = torch.randn((B, M), generator=g, device=card)
+    eps = 0.05 * torch.randn((B, M), generator=g, device=card)
+    pulses = model(rv).detach().contiguous()
+    grads = []
+    for fn, dtype in ((tk.mean_fidelity_cuda, torch.float32),
+                      (tk.mean_fidelity_plain, torch.float32),
+                      (tk.mean_fidelity_plain, torch.float64)):
+        p = pulses.to(dtype).requires_grad_(True)
+        (grad,) = torch.autograd.grad(
+            fn(p, qt.to(dtype), delta.to(dtype), eps.to(dtype)).mean(), p)
+        grads.append(grad)
+    e32 = float((grads[1].double() - grads[2]).abs().max())
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=max(1e-4, 2 * e32))
+    tr = Trainer(model, TrainConfig(monte_carlo=M, batch_size=B, backend="pallas"),
+                 device=card)
+    counts = (tk.mean_fidelity_cuda.launches, tk.propagate_mc_cuda.launches,
+              tk.propagate_mc_vjp_cuda.launches)
+    before = model.fc2.weight.detach().clone()
+    loss, fid = tr.train_step(rv, qt, (delta, eps))
+    torch.cuda.synchronize()
+    assert (tk.mean_fidelity_cuda.launches, tk.propagate_mc_cuda.launches,
+            tk.propagate_mc_vjp_cuda.launches) == tuple(c + 1 for c in counts)
+    assert bool(torch.isfinite(loss)) and 0.0 < float(fid) <= 1.0
+    assert not torch.equal(before, model.fc2.weight.detach())

@@ -291,13 +291,16 @@ TWO_QUBIT_SERVING = ("core/su4.py", "ops/propagate_su4.py", "data/su4_targets.py
 TWO_QUBIT_PER_GATE = ("workloads/two_qubit_grape.py", "workloads/finetune_two_qubit_gates.py",
                       "analysis/dephasing_bound.py", "analysis/two_qubit_split_eval.py",
                       "demo/app.py")
+SLICE_2 = ("models/grape.py", "workloads/grape_single_qubit.py", "workloads/finetune_gates.py",
+           "analysis/p4_grape_ceiling.py", "optimizers/dcrab.py",
+           "workloads/dcrab_single_qubit.py")
 
 
 def test_port_imports_nothing_forbidden():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
     assert {str(p.relative_to(PORT)) for p in files if PORT in p.parents} >= \
-        set(TRAINING_HALF) | set(TWO_QUBIT_SERVING) | set(TWO_QUBIT_PER_GATE)
+        set(TRAINING_HALF) | set(TWO_QUBIT_SERVING) | set(TWO_QUBIT_PER_GATE) | set(SLICE_2)
     for path in files:
         for mod in _imports(path):
             assert not any(mod == f or mod.startswith(f + ".") for f in FORBIDDEN), \
@@ -321,7 +324,9 @@ def test_port_import_loads_no_jax():
         "        'workloads.two_qubit', 'workloads.two_qubit_grape',\n"
         "        'workloads.finetune_two_qubit_gates', 'analysis.dephasing_bound',\n"
         "        'analysis.two_qubit_split_eval', 'demo.app',\n"
-        "        'analysis.plots_su4']\n"
+        "        'analysis.plots_su4', 'models.grape', 'workloads.grape_single_qubit',\n"
+        "        'workloads.finetune_gates', 'analysis.p4_grape_ceiling',\n"
+        "        'optimizers.dcrab', 'workloads.dcrab_single_qubit']\n"
         "missing = [m for m in need if p.__name__ + '.' + m not in sys.modules]\n"
         "print(bad, missing)\n"
         "sys.exit(1 if bad or missing else 0)\n")

@@ -1,16 +1,20 @@
 r"""Serve the trained universal models: rotation → pulse table.
 
 The serving half of the JAX package's ``demo/app.py``: the single-qubit
-variant map, a cached model loader and ``compute_pulses``; the two-qubit
-variants (``TWO_QUBIT_VARIANTS``: the three model variants, served through
+variant map (the shipped universal models, the ``length_400`` blend of
+0.2 · model + its base pulse, and the ``length_100_gates`` /
+``length_100_gates_p4`` per-gate bundles, which serve a bundle's table for
+an exact named-gate request and the model elsewhere), a cached model
+loader, ``compute_pulses`` and ``default_variant``; the two-qubit variants
+(``TWO_QUBIT_VARIANTS``: the three model variants, served through
 ``workloads/two_qubit_eval.py``, the ``two_qubit_gates`` per-gate bundle
 and the ``cz_robust`` / ``cz_drive2`` pulse tables) with the numeric half
 of ``render_two_qubit_artifacts``: the pulse table it picks
 (:func:`two_qubit_pulse_table`) and its E[F](σ_δ) sweep through kernel B7
-(:func:`two_qubit_robustness`).  The CSV, the figures, Gradio and the
-single-qubit gate bundles are not ported yet (``ROADMAP.md`` A.18, A.19).
-The configs and ``.npz`` weights are the JAX package's own files, read
-where they lie (reading a data file imports nothing of that package).
+(:func:`two_qubit_robustness`).  The CSV, the figures and Gradio are not
+ported yet (``ROADMAP.md`` A.18).  The configs, ``.npz`` weights and the
+base pulse ``.csv`` are the JAX package's own files, read where they lie
+(reading a data file imports nothing of that package).
 """
 
 from __future__ import annotations
@@ -30,24 +34,50 @@ from ..models import (Pipeline, UniversalQOCTransformer, load_params_npz,
 from ..optimizers.two_qubit_grape import named_two_qubit_targets
 from ..training.systems import SU4System
 from ..utils import load_model_params, resolve_device
+from ..workloads.finetune_gates import load_gate_bundle
 from ..workloads.finetune_two_qubit_gates import load_two_qubit_gate_bundle
 from ..workloads.two_qubit_eval import model_gate_pulses
+from ..workloads.universal_single_qubit import load_base_pulse
 
 __all__ = ["MODEL_VARIANTS", "TWO_QUBIT_VARIANTS", "load_pipeline", "compute_pulses",
-           "two_qubit_model_kwargs", "two_qubit_pulse_table", "two_qubit_robustness"]
+           "default_variant", "two_qubit_model_kwargs", "two_qubit_pulse_table",
+           "two_qubit_robustness"]
 
 _JAX_PACKAGE_DIR = (Path(__file__).resolve().parent.parent.parent
                     / "universal_quantum_optimal_control_tpu")
 _CONFIG_DIR = _JAX_PACKAGE_DIR / "configs"
 _WEIGHTS_DIR = _JAX_PACKAGE_DIR / "demo" / "weights"
 
+# Single-qubit variants, the JAX map's.  ``length_400`` serves
+# 0.2 · model + ``base_pulse`` (loaded once); the ``_gates`` variants serve a
+# bundle's table for an exact named-gate request and their model elsewhere.
 MODEL_VARIANTS: Dict[str, Dict] = {
     "length_100_med": {
         "config": str(_CONFIG_DIR / "universal_single_qubit_length100_med.json"),
         "checkpoint": str(_WEIGHTS_DIR / "length100_med.npz")},
+    "small_20": {"config": str(_CONFIG_DIR / "universal_single_qubit_small20.json"),
+                 "checkpoint": str(_WEIGHTS_DIR / "small20.npz")},
     # the flagship: d512 × 8 layers, 16 heads, L = 100, P = 2
     "length_100": {"config": str(_CONFIG_DIR / "universal_single_qubit.json"),
                    "checkpoint": str(_WEIGHTS_DIR / "length100.npz")},
+    # L = 400, τ ∈ (−0.5, 0.5) through the head's relu, blended with a base
+    "length_400": {"config": str(_CONFIG_DIR / "universal_single_qubit_length400.json"),
+                   "checkpoint": str(_WEIGHTS_DIR / "length400.npz"),
+                   "base_pulse": str(_WEIGHTS_DIR / "grape_x400_pulse.csv")},
+    "length_100_gates": {
+        "config": str(_CONFIG_DIR / "universal_single_qubit.json"),
+        "checkpoint": str(_WEIGHTS_DIR / "length100.npz"),
+        "gate_bundle": str(_WEIGHTS_DIR / "length100_gates.npz")},
+    # the universal model in the 4-parameter space (φ, Ω, Δ, τ)
+    "length_100_p4": {"config": str(_CONFIG_DIR / "universal_single_qubit_p4.json"),
+                      "checkpoint": str(_WEIGHTS_DIR / "length100_p4.npz")},
+    "length_100_gates_p4": {
+        "config": str(_CONFIG_DIR / "universal_single_qubit_p4.json"),
+        "checkpoint": str(_WEIGHTS_DIR / "length100_p4.npz"),
+        "gate_bundle": str(_WEIGHTS_DIR / "length100_gates_p4.npz")},
+    "length_400_p4": {
+        "config": str(_CONFIG_DIR / "universal_single_qubit_length400_p4.json"),
+        "checkpoint": str(_WEIGHTS_DIR / "length400_p4.npz")},
 }
 
 
@@ -150,28 +180,59 @@ def load_pipeline(variant: str, checkpoint: Optional[str] = None, device=None,
     """Build and cache an eval-mode Pipeline for a model variant.
 
     ``checkpoint`` overrides the variant's ``.npz``; ``dtype`` is the
-    encoder's compute dtype (bf16 by default, as the JAX demo serves).
+    encoder's compute dtype (bf16 by default, as the JAX demo serves).  A
+    variant with a ``base_pulse`` serves the blend 0.2 · model + base, its
+    base loaded once here.
     """
     spec = MODEL_VARIANTS[variant]
     ckpt = str(checkpoint or spec["checkpoint"])
     if not ckpt.endswith(".npz"):
         raise ValueError(f"checkpoint must be an .npz artifact, got {ckpt!r}")
+    dev = resolve_device(device)
     model_params = load_model_params(spec["config"])
     model_params["pulse_space"] = normalize_pulse_space(model_params["pulse_space"])
-    model_params["finetune"] = False
-    model = UniversalQOCTransformer(**model_params, dtype=dtype,
-                                    device=resolve_device(device))
+    base_pulse = None
+    if spec.get("base_pulse"):
+        base_pulse = torch.as_tensor(load_base_pulse(spec["base_pulse"]), device=dev)
+    model_params["finetune"] = base_pulse is not None
+    model = UniversalQOCTransformer(**model_params, dtype=dtype, device=dev)
     model.load_state_dict(params_from_jax(load_params_npz(ckpt)))
-    return Pipeline(model)
+    return Pipeline(model, base_pulse=base_pulse)
+
+
+def _gate_bundle_lookup(variant: str, rv: np.ndarray) -> Optional[np.ndarray]:
+    """The variant's bundle table ``(L, P)`` where the request ``rv`` ``(1,
+    4)`` matches one of its named gates (axis and angle within 1e-5), else
+    ``None``."""
+    path = MODEL_VARIANTS[variant].get("gate_bundle")
+    if not path or not Path(path).exists():
+        return None
+    tables, meta = load_gate_bundle(path)
+    for name, gate_rv in zip(meta["gates"], meta["rotation_vectors"]):
+        if np.allclose(rv[0], np.asarray(gate_rv, np.float32), atol=1e-5):
+            return tables[name]
+    return None
 
 
 def compute_pulses(variant: str, x: float, y: float, z: float, theta: float,
                    checkpoint: Optional[str] = None, device=None,
                    dtype: torch.dtype = torch.bfloat16) -> Tuple[np.ndarray, torch.Tensor]:
-    """Rotation spec → ``(pulses (L, P) numpy, target quaternion (4,))``."""
+    """Rotation spec → ``(pulses (L, P) numpy, target quaternion (4,))``: the
+    variant's bundle table for an exact named-gate request, else its
+    model's."""
     n = np.asarray([x, y, z], np.float64)
     n = n / max(np.linalg.norm(n), 1e-12)
-    rv = torch.tensor([[n[0], n[1], n[2], theta]], dtype=torch.float32)
-    pipe = load_pipeline(variant, checkpoint, device, dtype)
-    pulses = pipe(rv)[0].cpu().numpy()
-    return pulses, rotation_vector_to_quat(rv[0])
+    rv = np.asarray([[n[0], n[1], n[2], theta]], np.float32)
+    pulses = _gate_bundle_lookup(variant, rv)
+    if pulses is None:
+        pipe = load_pipeline(variant, checkpoint, device, dtype)
+        pulses = pipe(rv)[0].cpu().numpy()
+    return pulses, rotation_vector_to_quat(torch.from_numpy(rv[0]))
+
+
+def default_variant() -> str:
+    """The flagship variant if its weights ship, else the best shipped one."""
+    for name in ("length_100", "length_100_med", "small_20"):
+        if MODEL_VARIANTS[name]["checkpoint"] is not None:
+            return name
+    return "length_100_med"

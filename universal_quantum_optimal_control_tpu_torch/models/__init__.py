@@ -1,4 +1,7 @@
-from . import pipeline, score_embedding, serialization, two_qubit, universal_transformer  # noqa: F401
+from . import (grape, pipeline, score_embedding, serialization, two_qubit,  # noqa: F401
+               universal_transformer)
+
+from .grape import GRAPE  # noqa: F401
 
 from .pipeline import Pipeline, rotation_vector_from_unitary  # noqa: F401
 from .score_embedding import (  # noqa: F401

@@ -8,7 +8,9 @@ numpy only: the port never imports JAX to load them.
 
 :func:`params_from_jax` is the one place that knows both layouts: it turns
 Flax parameters (numpy arrays keyed by those paths) into the
-``state_dict`` of :class:`.universal_transformer.UniversalQOCTransformer`.
+``state_dict`` of :class:`.universal_transformer.UniversalQOCTransformer`
+or of :class:`.grape.GRAPE` (its bias-free ``fc1`` / ``fc2`` and the direct
+``pulse_logits`` table).
 :func:`transfer_encoder_params` copies the shape-matching blocks of one such
 ``state_dict`` into another (the ``--pretrained_encoder`` warm start).
 """
@@ -52,7 +54,8 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     Flax ``Dense`` kernels are ``(in, out)``; torch ``Linear`` weights are
     ``(out, in)``.  Attention ``query/key/value`` kernels ``(d, H, Dh)`` and
     biases ``(H, Dh)`` flatten the heads; the ``out`` kernel ``(H, Dh, d)``
-    likewise.  LayerNorm ``scale`` is the torch ``weight``.
+    likewise.  LayerNorm ``scale`` is the torch ``weight``.  GRAPE's
+    ``pulse_logits`` table carries as it is.
     """
     sd: Dict[str, torch.Tensor] = {}
     for key, value in flat.items():
@@ -60,6 +63,9 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         if parts[0] == "params":
             parts = parts[1:]
         arr = np.asarray(value, dtype=np.float32)
+        if parts == ["pulse_logits"]:
+            sd["pulse_logits"] = torch.from_numpy(np.array(arr, order="C"))
+            continue
         name = _torch_name(parts, key)
         leaf = parts[-1]
         if leaf == "kernel":
@@ -79,7 +85,7 @@ def _torch_name(parts, key: str) -> str:
     torch_leaf = {"kernel": "weight", "bias": "bias", "scale": "weight"}.get(leaf)
     if torch_leaf is None:
         raise KeyError(f"unrecognized parameter {key!r}")
-    if len(parts) == 2 and parts[0] in ("unitary_proj", "head"):
+    if len(parts) == 2 and parts[0] in ("unitary_proj", "head", "fc1", "fc2"):
         return f"{parts[0]}.{torch_leaf}"
     m = re.fullmatch(r"encoder_(\d+)", parts[0])
     if m:
