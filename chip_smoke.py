@@ -5,7 +5,7 @@ single-qubit variants, GRAPE, polish and dCRAB, then time.
 
     python3 chip_smoke.py
 
-Nineteen phases, each printing its own line with its seconds:
+Twenty-one phases, each printing its own line with its seconds:
 
 1. device: the card, torch and CUDA versions, ``nvidia-smi`` name and power limit;
 2. build: one ``nvcc`` call per source, started together
@@ -98,7 +98,30 @@ Nineteen phases, each printing its own line with its seconds:
     problem, ms and kernel launches per Adam step; nm mode at N = 12, 200
     iterations.  Plain PyTorch (the JAX package has no kernel here): every
     counter must stay at 0;
-19. time: each kernel at the shape of each path that runs it, with CUDA
+19. mesh: 2 ranks on this card over gloo (NCCL refuses two ranks on one
+    device), started as ``chip_smoke.py --mesh-rank`` with a launcher's
+    environment, as a 1 × 2 and then a 2 × 1 mesh: ``make_mean_fidelity(mesh,
+    "pallas")`` and ``make_per_target_objective`` at the flagship training
+    shape (B 200, L 100, P 2, M 1000, σ_δ = 1, ε_std 0.05), value within 2e-6
+    and pulse gradient within 1e-5 of its largest entry of one process's B1
+    on the same draws; the training CLI with ``--mesh`` at the flagship's
+    width (``--backend pallas``, batch 200, M 1000, dropout on, one epoch of
+    2 steps a band), its losses and E[F] at every step and band 0's eval
+    E[F] within 1e-4 relative of a one-process run with the same seed, later
+    bands' eval E[F] within 4e-4, the ranks' parameters bit-identical, only
+    rank 0 writing; ms per train step and a step's gloo all-reduce (the
+    parameters' gradient); ``--mesh 3,5``
+    raising its ``ValueError``.
+    Each rank reports its counters and times as one JSON line;
+20. run: ``workloads/run.py`` on a RunConfig at
+    ``configs/universal_single_qubit.json``'s widths (f32, ``backend``
+    pallas, batch 200, M 1000, 3 bands of 2 steps), band 2 exported by
+    ``workloads/export_npz.py`` in f32, f16 and int8: the f32 export served
+    through the demo's loader within 1e-6 of the trainer's eval-mode pulses
+    (5 named gates, 3 random targets), the f16 and int8 exports equal to a
+    numpy round trip of the trainer's weights, each export's E[F] through B1
+    (M = 2¹⁶) printed;
+21. time: each kernel at the shape of each path that runs it, with CUDA
     events (for B1, B2, B3 and B7 also the device's time of the kernels alone,
     each call queued behind a long one: their wrappers' host time exceeds a
     short launch's), beside its plain version, its bound and its ptxas registers,
@@ -112,13 +135,16 @@ Nineteen phases, each printing its own line with its seconds:
     one row of the ``kernels`` line per kernel and path, with that path's
     launches (B4 and B5 at both the polish's and the training shape; B1,
     B3 and B2 also at slice 2's GRAPE, polish and ceiling shapes, the
-    ceiling's at its default (80, 100, 4, 4096) though its run is cut).
+    ceiling's at its default (80, 100, 4, 4096) though its run is cut, and
+    at the mesh's local shapes 200 × 100 × 2 × 500 and 100 × 100 × 2 × 1000,
+    with both ranks' launches, and the runner's training shape).
 
 Phases 6–7 are the single-qubit serving path, phase 8's CLI run the
 training path, phases 9–10 the two-qubit serving path, phase 11's CLI run
 the two-qubit training path, phases 12–13 the two-qubit per-gate paths
 (GRAPE, polish), phase 14 the two-qubit demo variants and phases 15–18
-slice 2's paths (the variants, GRAPE, the polish and ceiling, dCRAB); the
+slice 2's paths (the variants, GRAPE, the polish and ceiling, dCRAB),
+phase 19 the mesh's (in each rank) and phase 20 the runner's; the
 kernels' launch counters are set to 0 just before each and read just
 after, and every kernel of the path must have been launched there.  No path runs B8
 (the JAX package has no caller of its ``_bwd_kernel`` either): its row
@@ -132,6 +158,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1330,12 +1357,392 @@ def dcrab_su2(dev) -> dict:
             "busy": dev_ms / step_ms, "err": max(errs), "losses": (losses[0], losses[-1])}
 
 
+# Slice 4a: the mesh and the config-driven runner.  [mesh] runs 2 ranks of
+# gloo on the one card (NCCL refuses two ranks on one device) at the flagship
+# training shape; its gates: the sharded objective's value within MESH_VALUE_TOL
+# of one process's B1 on the same draws, its gradient within MESH_GRAD_TOL of
+# its largest entry, the CLI's steps' losses and E[F] and band 0's eval E[F]
+# within MESH_LOSS_RTOL relative, later bands' eval E[F] within MESH_EVAL_RTOL.
+MESH_LAYOUTS = ((1, 2), (2, 1))
+MESH_SHAPE = (200, 100, 2, 1000)
+MESH_VALUE_TOL = 2e-6
+MESH_GRAD_TOL = 1e-5
+MESH_LOSS_RTOL = 1e-4
+# The eval E[F] after band 0 follows 2 to 4 Adam steps: their first updates
+# are about lr·sign(g) entry by entry, so entries whose gradient is rounding
+# noise move by ±lr either way, and the 1e-7 difference between one process
+# and the mesh (the Monte-Carlo halves summed in another order, the rank's
+# rows through the model as a batch of their own) grows.  On an H100 80GB
+# HBM3 (700 W) sound meshes read up to 2.46e-4 relative there; a planted
+# fault, an eval that averages only the rank's own block (no all-reduce),
+# read 5.6e-4 and 7.3e-4 at 1 x 2, 1.5e-3 and 2.7e-3 at 2 x 1 (and 2.5e-4 and
+# 2.6e-3 in band 0, above MESH_LOSS_RTOL).  MESH_EVAL_RTOL lies between.
+MESH_EVAL_RTOL = 4e-4
+MESH_RANK_TIMEOUT = 240
+MESH_STEPS = 5  # timed train steps a rank after its CLI run
+# the training CLI at the flagship's width, 2 steps a band (400 grid targets)
+MESH_CLI_ARGV = ["--device", "cuda", "--backend", "pallas", "--num_epoch", "1",
+                 "--batch_size", "200", "--monte_carlo", "1000", "--train_size", "400",
+                 "--eval_size", "200"]
+RUN_MC = 1 << 16  # the exports' E[F] through B1, printed as information
+RUN_EXPORT_TOL = 1e-6  # the f32 export served against the trainer's eval pulses
+
+
+def mesh_inputs(dev) -> dict:
+    """The sharded objective's inputs at the flagship training shape: pulses
+    in the flagship's box, unit targets, σ_δ = 1 and ε_std = 0.05 draws,
+    per-target weights for the per-target objective."""
+    B, L, P, M = MESH_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(23)
+    u = torch.rand((B, L, P), generator=gen, device=dev)
+    pulses = torch.stack([-math.pi + 2 * math.pi * u[..., 0], 0.1 + 0.4 * u[..., 1]], -1)
+    q_t = torch.randn((B, 4), generator=gen, device=dev)
+    return {"pulses": pulses.contiguous(), "q_t": (q_t / q_t.norm(dim=-1, keepdim=True)),
+            "delta": torch.randn((B, M), generator=gen, device=dev),
+            "eps": 0.05 * torch.randn((B, M), generator=gen, device=dev),
+            "w": torch.rand((B,), generator=gen, device=dev) / B}
+
+
+def params_digest(model) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for k, v in sorted(model.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_rank(argv) -> int:
+    """One rank of the [mesh] phase, started by :func:`mesh_phase` with the
+    launcher's environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT,
+    LOCAL_RANK): for each layout, the sharded objectives on its blocks, then
+    the training CLI with ``--mesh``, its steps timed and a step's gloo
+    all-reduce (the parameters' gradient) timed; then the ``--mesh 3,5`` probe.  Prints one line
+    ``MESH_RANK {json}``."""
+    import torch.distributed as dist
+    from universal_quantum_optimal_control_tpu_torch.parallel import (
+        DATA_AXIS, MC_AXIS, init_distributed, make_mean_fidelity, make_mesh, rank_device,
+        shard_spec)
+    from universal_quantum_optimal_control_tpu_torch.training import (
+        CurriculumBand, SU2System, make_per_target_objective)
+    from universal_quantum_optimal_control_tpu_torch.training import trainer as trainer_mod
+    from universal_quantum_optimal_control_tpu_torch.workloads import universal_single_qubit
+
+    in_path, out_dir = argv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backend = init_distributed()
+    dev = rank_device("cuda")
+    torch.cuda.set_device(dev)
+    inp = {k: v.to(dev) for k, v in torch.load(in_path, weights_only=True).items()}
+    writes = []
+    save = trainer_mod.save_checkpoint
+
+    def counted(*a, **k):
+        writes.append(k.get("tag"))
+        return save(*a, **k)
+
+    trainer_mod.save_checkpoint = counted
+    counters = su2_counters()
+    report = {"rank": dist.get_rank(), "backend": backend, "device": str(dev), "layouts": {}}
+    for data, mc in MESH_LAYOUTS:
+        mesh = make_mesh(data=data, mc=mc)
+        for c in counters.values():
+            c.launches = 0
+        # (a) the sharded objectives on this rank's blocks
+        rows, block = shard_spec(mesh, DATA_AXIS), shard_spec(mesh, DATA_AXIS, MC_AXIS)
+        r = mesh.block(MESH_SHAPE[0], DATA_AXIS)
+        res = {}
+        fn = make_mean_fidelity(mesh, "pallas")
+        per = make_per_target_objective(mesh, SU2System("pallas").local_mean_fidelity)
+        for name in ("mean_fidelity", "per_target"):
+            p = rows(inp["pulses"]).requires_grad_(True)
+            args = (rows(inp["q_t"]), block(inp["delta"]), block(inp["eps"]))
+            if name == "mean_fidelity":
+                v, scale = fn(p, *args), fn.grad_scale
+                v.backward()
+            else:
+                v = mesh.gather(per(p, args[0], args[1:]), DATA_AXIS)
+                torch.sum(inp["w"] * v).backward()
+                scale = per.grad_scale
+            full = torch.zeros_like(inp["pulses"])
+            full[r] = p.grad
+            res[name] = (v.detach(), mesh.all_reduce_(full) * scale)
+        torch.save(res, Path(out_dir) / f"objective_{data}x{mc}_rank{mesh.rank}.pt")
+        # (b) the training CLI with --mesh, then timed steps and all-reduces
+        del writes[:]
+        save_path = Path(out_dir) / f"cli_{data}x{mc}"
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tr, history = universal_single_qubit.run(universal_single_qubit.build_parser().parse_args(
+            MESH_CLI_ARGV + ["--mesh", f"{data},{mc}", "--save_path", str(save_path)]))
+        torch.cuda.synchronize()
+        t_cli = time.perf_counter() - t1
+        launches = {k: c.launches for k, c in counters.items()}
+        rv, qt = inp["rv"], inp["qt"]
+        band = CurriculumBand(1.0)
+        tr.train_step(rv, qt, tr.sample_errors(rv.shape[0], band), dropout=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(MESH_STEPS):
+            tr.train_step(rv, qt, tr.sample_errors(rv.shape[0], band), dropout=True)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t1) / MESH_STEPS
+        # a step's one exchange: the parameters' gradient
+        flat = torch.ones(sum(p.numel() for p in tr.model.parameters()), device=dev)
+        mesh.all_reduce_(flat)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(MESH_STEPS):
+            mesh.all_reduce_(flat)
+        torch.cuda.synchronize()
+        allreduce_ms = 1e3 * (time.perf_counter() - t1) / MESH_STEPS
+        report["layouts"][f"{data}x{mc}"] = {
+            "launches": launches, "t_cli": t_cli, "step_ms": step_ms,
+            "allreduce_ms": allreduce_ms, "allreduce_mb": 4 * flat.numel() / 2 ** 20,
+            "writes": list(writes), "digest": params_digest(tr.model),
+            "bands": [{k: b[k] for k in ("step_loss", "step_fid", "eval_fid")}
+                      for b in history["bands"]]}
+    # (c) a mesh that is not the world size
+    for probe in (lambda: make_mesh(data=3, mc=5),
+                  lambda: universal_single_qubit.main(MESH_CLI_ARGV + ["--mesh", "3,5"])):
+        try:
+            probe()
+        except ValueError as e:
+            report.setdefault("probe", []).append(str(e))
+        else:
+            raise AssertionError("--mesh 3,5 on 2 ranks did not raise")
+    print("MESH_RANK " + json.dumps(report), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_phase(dev, tmp: Path) -> dict:
+    """[mesh]: 2 ranks on this card over gloo, started with the launcher's
+    environment as ``chip_smoke.py --mesh-rank``; the parent holds them to
+    one process on the same inputs: the objectives to B1 here, the CLI to
+    its one-process run, the ranks' parameters to each other, the writes to
+    rank 0, the 3x5 probe to its ValueError."""
+    import socket
+    from universal_quantum_optimal_control_tpu_torch.data import build_su2_dataset
+    from universal_quantum_optimal_control_tpu_torch.ops.propagate_su2 import mean_fidelity_cuda
+    from universal_quantum_optimal_control_tpu_torch.workloads import universal_single_qubit
+
+    inp = mesh_inputs(dev)
+    rv, qt = build_su2_dataset(torch.Generator().manual_seed(31), MESH_SHAPE[0], random=True,
+                               device=dev)
+    inp.update(rv=rv, qt=qt)
+    in_path = tmp / "mesh_inputs.pt"
+    torch.save({k: v.cpu() for k, v in inp.items()}, in_path)
+    # one process: B1 on the whole batch, and the CLI without --mesh
+    want = {}
+    for name in ("mean_fidelity", "per_target"):
+        p = inp["pulses"].clone().requires_grad_(True)
+        f = mean_fidelity_cuda(p, inp["q_t"], inp["delta"], inp["eps"])
+        if name == "mean_fidelity":
+            v = f.mean()
+            v.backward()
+        else:
+            v = f
+            torch.sum(inp["w"] * f).backward()
+        want[name] = (v.detach(), p.grad)
+    t1 = time.perf_counter()
+    _, one = universal_single_qubit.run(universal_single_qubit.build_parser().parse_args(
+        MESH_CLI_ARGV + ["--save_path", str(tmp / "cli_one")]))
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t1
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for rank in range(2):
+        env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank),
+               "WORLD_SIZE": "2", "LOCAL_WORLD_SIZE": "2", "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(port)}
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mesh-rank", str(in_path),
+             str(tmp)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=str(Path(__file__).resolve().parent)))
+    t1 = time.perf_counter()
+    try:
+        outs = [p.communicate(timeout=MESH_RANK_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    t_ranks = time.perf_counter() - t1
+    reports = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("MESH_RANK ")]
+        if p.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"mesh rank {rank} exited {p.returncode}:\n{out[-4000:]}")
+        reports.append(json.loads(lines[0][len("MESH_RANK "):]))
+    if any(r["backend"] != "gloo" for r in reports):
+        raise AssertionError(f"backends {[r['backend'] for r in reports]}, want gloo")
+    out = {"reports": reports, "t_one": t_one, "t_ranks": t_ranks, "errs": {}, "launches": {}}
+    for data, mc in MESH_LAYOUTS:
+        key = f"{data}x{mc}"
+        for rank in range(2):
+            got = torch.load(tmp / f"objective_{key}_rank{rank}.pt", weights_only=True)
+            for name, (v, g) in got.items():
+                ev = float((v.to(dev) - want[name][0]).abs().max())
+                g0 = want[name][1]
+                eg = float((g.to(dev) - g0).abs().max()) / float(g0.abs().max())
+                if not (ev <= MESH_VALUE_TOL and eg <= MESH_GRAD_TOL):
+                    raise AssertionError(f"[mesh] {key} rank {rank} {name}: value err {ev:.3e} "
+                                         f"(tol {MESH_VALUE_TOL}), gradient err {eg:.3e} of its "
+                                         f"largest entry (tol {MESH_GRAD_TOL})")
+                prev = out["errs"].get((key, name), (0.0, 0.0))
+                out["errs"][(key, name)] = (max(prev[0], ev), max(prev[1], eg))
+        lay = [r["layouts"][key] for r in reports]
+        for rank, la in enumerate(lay):
+            if min(la["launches"].values()) < 1:
+                raise AssertionError(f"[mesh] {key} rank {rank}: a kernel was not launched: "
+                                     f"{la['launches']}")
+            # relative differences: the steps' and band 0's eval, then each
+            # later band's eval (see MESH_EVAL_RTOL)
+            worst, evals = 0.0, []
+            for i, (b, b0) in enumerate(zip(la["bands"], one["bands"])):
+                for k in ("step_loss", "step_fid", "eval_fid"):
+                    a, w = np.asarray(b[k]), np.asarray(b0[k])
+                    if a.shape != w.shape or not np.all(np.isfinite(a)):
+                        raise AssertionError(f"[mesh] {key} rank {rank} {k}: {a} vs {w}")
+                    rel = float(np.max(np.abs(a - w) / np.abs(w)))
+                    if k == "eval_fid" and i > 0:
+                        evals.append(rel)
+                    else:
+                        worst = max(worst, rel)
+            la["rel"], la["rel_evals"], la["rel_eval"] = worst, evals, max(evals, default=0.0)
+            if not (worst <= MESH_LOSS_RTOL and la["rel_eval"] <= MESH_EVAL_RTOL):
+                raise AssertionError(
+                    f"[mesh] {key} rank {rank}: steps' losses / E[F] and band 0's eval E[F] "
+                    f"{worst:.3e} relative from one process (tol {MESH_LOSS_RTOL}), later "
+                    f"bands' eval E[F] {evals} (tol {MESH_EVAL_RTOL}); mesh {la['bands']}; one "
+                    f"process {[{k: b[k] for k in ('step_loss', 'step_fid', 'eval_fid')} for b in one['bands']]}")
+        if lay[0]["digest"] != lay[1]["digest"]:
+            raise AssertionError(f"[mesh] {key}: the ranks' parameters differ")
+        if len(lay[0]["writes"]) != 3 or lay[1]["writes"]:
+            raise AssertionError(f"[mesh] {key}: writes rank 0 {lay[0]['writes']}, "
+                                 f"rank 1 {lay[1]['writes']}")
+        out["launches"][f"mesh-{key}"] = {k: sum(la["launches"][k] for la in lay)
+                                          for k in lay[0]["launches"]}
+    for r in reports:
+        if not all("mesh 3x5 != 2 devices" in m for m in r.get("probe", [])) or \
+                len(r.get("probe", [])) != 2:
+            raise AssertionError(f"[mesh] the 3x5 probe: {r.get('probe')}")
+    return out
+
+
+def run_phase(dev, tmp: Path) -> dict:
+    """[run]: ``workloads/run.py`` on a RunConfig of the flagship's widths
+    (configs/universal_single_qubit.json, f32, ``backend`` pallas, batch 200,
+    M = 1000, 3 bands of 2 steps), band 2 exported in f32, f16 and int8;
+    the f32 export served through the demo's loader against the trainer's
+    eval-mode pulses, the f16 and int8 exports against a numpy round trip of
+    the trainer's weights, each export's E[F] through B1."""
+    from universal_quantum_optimal_control_tpu_torch.core import rotation_vector_to_quat
+    from universal_quantum_optimal_control_tpu_torch.data import (build_su2_dataset,
+                                                                  named_gate_rotation_vectors)
+    from universal_quantum_optimal_control_tpu_torch.demo.app import load_pipeline
+    from universal_quantum_optimal_control_tpu_torch.models import (
+        UniversalQOCTransformer, load_params_npz, params_to_jax)
+    from universal_quantum_optimal_control_tpu_torch.models.serialization import _quantize_int8
+    from universal_quantum_optimal_control_tpu_torch.ops.propagate_su2 import mean_fidelity_cuda
+    from universal_quantum_optimal_control_tpu_torch.training import restore_checkpoint
+    from universal_quantum_optimal_control_tpu_torch.utils import load_model_params
+    from universal_quantum_optimal_control_tpu_torch.workloads import (export_npz, run,
+                                                                       universal_single_qubit)
+
+    model_json = load_model_params(universal_single_qubit.DEFAULT_CONFIG)
+    model_json["finetune"] = False
+    model_json["dtype"] = "float32"
+    cfg = {"workload": "universal_single_qubit", "model": model_json,
+           "train": {"backend": "pallas", "batch_size": 200, "monte_carlo": 1000, "epochs": 1},
+           "train_set_size": 400, "eval_set_size": 200, "save_path": str(tmp / "run")}
+    path = tmp / "run.json"
+    path.write_text(json.dumps(cfg))
+    counters = su2_counters()
+    for c in counters.values():
+        c.launches = 0
+    t1 = time.perf_counter()
+    best, history = run.main([str(path), "--device", "cuda"])
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t1
+    steps = [x for b in history["bands"] for x in b["step_loss"]]
+    if len(history["bands"]) != 3 or len(steps) != 6 or not all(map(math.isfinite, steps)):
+        raise AssertionError(f"run.py: {history}")
+    tag = "band2_delta1_eps0.05"
+    params, meta = restore_checkpoint(str(tmp / "run"), tag)
+    model = UniversalQOCTransformer(**{**model_json, "dtype": torch.float32}, device=dev)
+    model.load_state_dict(params)
+    model.eval()
+    gates = named_gate_rotation_vectors(device=dev)
+    rng = np.random.default_rng(29)
+    axes = rng.standard_normal((3, 3))
+    axes /= np.linalg.norm(axes, axis=1, keepdims=True)
+    rv = torch.cat([torch.stack(list(gates.values())), torch.tensor(
+        np.concatenate([axes, rng.uniform(0, 2 * np.pi, (3, 1))], 1), dtype=torch.float32,
+        device=dev)])
+    with torch.no_grad():
+        want = model(rv)
+    flat = params_to_jax(params, meta["model"]["n_heads"])
+    gen = torch.Generator(device=dev).manual_seed(37)
+    d = torch.randn((8, RUN_MC), generator=gen, device=dev)
+    e = 0.05 * torch.randn((8, RUN_MC), generator=gen, device=dev)
+    q = rotation_vector_to_quat(rv)
+    res = {"t_run": t_run, "best": best, "exports": {}}
+    for dtype in ("f32", "f16", "int8"):
+        out = str(tmp / f"band2_{dtype}.npz")
+        t1 = time.perf_counter()
+        export_npz.main([f"{tmp / 'run'}:{tag}", out, "--dtype", dtype])
+        t_export = time.perf_counter() - t1
+        got = load_params_npz(out)
+        if set(got) != set(flat):
+            raise AssertionError(f"{dtype} export keys differ")
+        if dtype == "f32":
+            pulses = load_pipeline("length_100", checkpoint=out, device=dev,
+                                   dtype=torch.float32)(rv)
+            err = float((pulses - want).abs().max())
+            if not err <= RUN_EXPORT_TOL:
+                raise AssertionError(f"f32 export served {err:.3e} from the trainer's pulses")
+        else:
+            for k, v in flat.items():
+                if dtype == "int8" and v.ndim >= 2 and v.size >= 4096:
+                    qv, scale = _quantize_int8(v)
+                    ref = qv.astype(np.float32) * scale
+                else:
+                    ref = v.astype(np.float16).astype(np.float32)
+                if not np.array_equal(got[k], ref):
+                    raise AssertionError(f"{dtype} export {k} differs from the numpy round trip")
+            err = 0.0
+            pulses = load_pipeline("length_100", checkpoint=out, device=dev,
+                                   dtype=torch.float32)(rv)
+        ef = mean_fidelity_cuda(pulses.contiguous(), q, d, e)
+        res["exports"][dtype] = {"err": err, "t_export": t_export,
+                                 "mb": Path(out).stat().st_size / 2 ** 20,
+                                 "ef": ef.tolist()}
+    torch.cuda.synchronize()
+    res["launches"] = {k: c.launches for k, c in counters.items()}
+    if min(res["launches"].values()) < 1:
+        raise AssertionError(f"[run] a kernel was not launched: {res['launches']}")
+    # the training shape's pulses for the time phase: the trained model on 200
+    # random targets
+    rv200, res["q"] = build_su2_dataset(torch.Generator().manual_seed(41), 200, random=True,
+                                        device=dev)
+    with torch.no_grad():
+        res["pulses"] = model(rv200).contiguous()
+    return res
+
+
 def main() -> int:
     t_total = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(sys.argv[2:])
 
     from universal_quantum_optimal_control_tpu_torch.analysis import mc_fidelity_estimate
     from universal_quantum_optimal_control_tpu_torch.core import rotation_vector_to_quat
@@ -1869,7 +2276,38 @@ def main() -> int:
           f"{dq['step_ms']:.2f} ({dq['kernels']:.0f} launches); card vs CPU objective "
           f"{dq['err']:.2e} (tol {DCRAB_TOL:.0e}); nm CLI {dq['t_nm']:.2f} s")
 
-    # 19. time each kernel at each path's shape: one row per (kernel, path),
+    # 19. mesh — 2 gloo ranks on this card, each setting its counters to 0
+    # before each layout's run and reporting them
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mq = mesh_phase(dev, Path(tmp))
+    for r in mq["reports"]:
+        for key, la in r["layouts"].items():
+            print(f"  rank {r['rank']} ({r['backend']}, {r['device']}) {key}: CLI {la['t_cli']:.2f} s, "
+                  f"ms per train step {la['step_ms']:.2f}, a step's gloo all-reduce "
+                  f"({la['allreduce_mb']:.3f} MiB) {la['allreduce_ms']:.3f} ms, steps' losses / "
+                  f"E[F] and band 0's eval {la['rel']:.2e} relative from one process, later "
+                  f"bands' eval E[F] {la['rel_eval']:.2e}; launches {la['launches']}")
+    print("  objectives against one process's B1: " + "; ".join(
+        f"{k} {n} value {v:.2e}, gradient {g:.2e}" for (k, n), (v, g) in mq["errs"].items()))
+    phase("mesh", t0, f"backend gloo, layouts 1x2 and 2x1 at B 200, L 100, M 1000: value and "
+          f"gradient within {MESH_VALUE_TOL:.0e} / {MESH_GRAD_TOL:.0e}, the CLI within "
+          f"{MESH_LOSS_RTOL:.0e} (later evals {MESH_EVAL_RTOL:.0e}) of one process ({mq['t_one']:.2f} s), ranks bit-identical, "
+          f"rank 0 alone wrote, 3x5 raised; ranks {mq['t_ranks']:.2f} s; launches "
+          f"{mq['launches']}")
+
+    # 20. run — the config-driven runner and the exports: counters to 0 inside
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rq = run_phase(dev, Path(tmp))
+    for dt_name, ex in rq["exports"].items():
+        print(f"  {dt_name}: {ex['mb']:.1f} MiB in {ex['t_export']:.2f} s; E[F] at sigma 1, M = "
+              f"{RUN_MC} (5 gates, 3 random): " + " ".join(f"{x:.5f}" for x in ex["ef"]))
+    phase("run", t0, f"run.py {rq['t_run']:.2f} s (3 bands x 2 steps, best {rq['best']:.4f}); "
+          f"f32 export served within {rq['exports']['f32']['err']:.1e} (tol {RUN_EXPORT_TOL:.0e}), "
+          f"f16 and int8 equal to the numpy round trip; launches {rq['launches']}")
+
+    # 21. time each kernel at each path's shape: one row per (kernel, path),
     # its launches those of that path's run
     t0 = time.perf_counter()
     csrc = "universal_quantum_optimal_control_tpu_torch/ops/csrc/"
@@ -1897,7 +2335,7 @@ def main() -> int:
                 "grape-su4": gq["launches"], "polish-su4": pq["launches"],
                 "serve-su4-variants": vq["launches"], "serve-variants": sv["launches"],
                 "grape": g2["launches"], "finetune": f2["launches"],
-                "ceiling": f2["ceiling_launches"]}
+                "ceiling": f2["ceiling_launches"], "run": rq["launches"], **mq["launches"]}
 
     lib2 = _build.load_library("su2")
     lib4, lib4b = _build.load_library("su4"), _build.load_library("su4_bwd")
@@ -2203,6 +2641,21 @@ def main() -> int:
     d_c = 0.4 * torch.randn((Bc, Mc), generator=fgen, device=dev)
     e_c = 0.05 * torch.randn((Bc, Mc), generator=fgen, device=dev)
     slice2_rows += su2_train_rows("ceiling", p_c, q_c, d_c, e_c)
+    # slice 4a: B1, B3 and B2 at the mesh's local shapes (rank 0's block) and
+    # at the runner's training shape
+    mi = mesh_inputs(dev)
+    half = MESH_SHAPE[3] // 2
+    slice2_rows += su2_train_rows("mesh-1x2", mi["pulses"], mi["q_t"],
+                                  mi["delta"][:, :half].contiguous(),
+                                  mi["eps"][:, :half].contiguous())
+    rows2 = MESH_SHAPE[0] // 2
+    slice2_rows += su2_train_rows("mesh-2x1", mi["pulses"][:rows2].contiguous(),
+                                  mi["q_t"][:rows2].contiguous(),
+                                  mi["delta"][:rows2].contiguous(), mi["eps"][:rows2].contiguous())
+    rgen = torch.Generator(device=dev).manual_seed(43)
+    slice2_rows += su2_train_rows("run", rq["pulses"], rq["q"],
+                                  torch.randn((200, 1000), generator=rgen, device=dev),
+                                  0.05 * torch.randn((200, 1000), generator=rgen, device=dev))
     kernels = [fid_row("serve", pulses, q_t, delta, eps, 20), b1_train, b2_train,
                prop_row("serve", p1, d1, e1, 20), prop_row("train", pt, dt_, et_, 50),
                b6_row, b7_row, b4_row, b5_row, b6_train, b8_row, b7_grape, b4_pol, b5_pol,

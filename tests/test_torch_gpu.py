@@ -21,6 +21,12 @@ B4, B6, B5 and B8 run each sample on a group of four lanes; their cases
 include M = 4096 + 3, whose last block ends inside a group of samples, and
 two launches on the same inputs must agree bit for bit.
 
+Slice 4a: the sharded objective ``make_mean_fidelity(mesh, "pallas")``
+through B1 on 2 gloo ranks of a 1 × 2 mesh that share the card, against one
+process's B1 (value 2e-6, gradient 1e-5 of its largest entry); the
+``xla_remat`` backend on CUDA tensors against ``xla`` (the plain path, no
+kernel launched).
+
 This file imports nothing of JAX, so it also runs where JAX is absent:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
@@ -701,3 +707,45 @@ def test_grape_step_on_the_card(card):
             tk.propagate_mc_vjp_cuda.launches) == tuple(c + 1 for c in counts)
     assert bool(torch.isfinite(loss)) and 0.0 < float(fid) <= 1.0
     assert not torch.equal(before, model.fc2.weight.detach())
+
+
+def test_sharded_objective_through_b1_on_one_card(card, tmp_path):
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_mesh_worker as worker
+
+    gen = torch.Generator().manual_seed(3)
+    B, L, M = 40, 100, 1000
+    u = torch.rand((B, L, 2), generator=gen)
+    inp = {"pulses": torch.stack([-math.pi + 2 * math.pi * u[..., 0], 0.1 + 0.4 * u[..., 1]],
+                                 -1).contiguous(),
+           "q_t": torch.nn.functional.normalize(torch.randn((B, 4), generator=gen), dim=-1),
+           "delta": torch.randn((B, M), generator=gen),
+           "eps": 0.05 * torch.randn((B, M), generator=gen)}
+    ranks = worker.spawn("objectives_card", 2, 1, 2, tmp_path, inp, timeout=240.0)
+    p = inp["pulses"].to(card).requires_grad_(True)
+    v = tk.mean_fidelity_cuda(p, *(inp[k].to(card) for k in ("q_t", "delta", "eps"))).mean()
+    v.backward()
+    g = p.grad.cpu()
+    for res in ranks:
+        assert all(n >= 1 for n in res["launches"]), res["launches"]
+        assert abs(float(res["value"]) - float(v)) <= 2e-6
+        assert float((res["grad"] - g).abs().max()) <= 1e-5 * float(g.abs().max())
+
+
+def test_xla_remat_backend_on_cuda_tensors(card):
+    from universal_quantum_optimal_control_tpu_torch.parallel import mean_fidelity_local
+
+    pulses, q_t, delta, eps = inputs(2, 500, card, B=4, L=30)
+    for c in (tk.mean_fidelity_cuda, tk.propagate_mc_cuda, tk.propagate_mc_vjp_cuda):
+        c.launches = 0
+    grads = {}
+    for backend in ("xla_remat", "xla"):
+        p = pulses.clone().requires_grad_(True)
+        f = mean_fidelity_local(p, q_t, delta, eps, backend)
+        f.mean().backward()
+        grads[backend] = (f.detach(), p.grad)
+    assert tk.mean_fidelity_cuda.launches == tk.propagate_mc_cuda.launches == 0
+    assert float((grads["xla_remat"][0] - grads["xla"][0]).abs().max()) <= 1e-6
+    assert float((grads["xla_remat"][1] - grads["xla"][1]).abs().max()) <= 1e-5

@@ -13,7 +13,7 @@ The same numpy inputs go through both packages (CPU, f32, L = 16):
   and E[F] 1e-4 relative, gradients 1e-4 relative plus 1e-4 of the step's
   largest |g|, parameters as there;
 * the initial values' statistics, the direct-mode ``ValueError``, and the
-  CLI end to end on the CPU (``--mesh`` raises).
+  CLI end to end on the CPU (``--mesh`` of more ranks than run raises).
 """
 
 import jax
@@ -198,7 +198,7 @@ def test_cli_runs_on_cpu(tmp_path):
 
 
 def test_cli_mesh_and_default_device_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.17"):
+    with pytest.raises(ValueError, match="mesh 2x1 != 1 devices"):
         cli.main(["--device", "cpu", "--mesh", "2,1", "--save_path", str(tmp_path)])
     args = cli.build_parser().parse_args([])
     assert (args.backend, args.device, args.batch_size, args.seed) == ("xla", "cuda", 100, 42)

@@ -152,8 +152,9 @@ def test_pulse_widths_and_layouts_are_checked():
         tsu4.propagate_su4_mc(*args, tsu4.TwoQubitSystem(drive2=True))
     with pytest.raises(ValueError, match="require drive2"):
         tsu4.propagate_su4_mc(*t(case(4)[0], d1, d2, ep), tsu4.TwoQubitSystem())
-    with pytest.raises(NotImplementedError, match="A.21"):
-        tsu4.propagate_su4_mc(*args, tsu4.TwoQubitSystem(), layout="soa")
+    Us = tsu4.propagate_su4_mc(*args, tsu4.TwoQubitSystem(), layout="soa")
+    for a, b in zip(Us, tsu4.propagate_su4_mc(*args, tsu4.TwoQubitSystem(), layout="ri")):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
     with pytest.raises(ValueError, match="unknown layout"):
         tsu4.propagate_su4_mc(*args, tsu4.TwoQubitSystem(), layout="tiles")
     Ua = tsu4.propagate_su4_mc(*args, tsu4.TwoQubitSystem(), layout="auto")

@@ -202,7 +202,7 @@ def test_cli_pretrained_encoder_and_mesh(tmp_path, capsys):
     np.savez(npz, **{k: np.asarray(v) for k, v in _flatten(src).items()})
     _run_cli(tmp_path, tmp_path / "warm", "--pretrained_encoder", str(npz), "--num_epoch", "1")
     assert f"transferred encoder from {npz}" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A.17"):
+    with pytest.raises(ValueError, match="mesh 2x4 != 1 devices"):
         _run_cli(tmp_path, tmp_path / "mesh", "--mesh", "2,4")
 
 

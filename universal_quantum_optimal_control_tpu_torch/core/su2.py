@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "quat_identity",
     "quat_multiply",
     "quat_conj",
     "quat_normalize",
@@ -31,6 +32,14 @@ __all__ = [
     "quat_trace_inner",
     "quat_fidelity",
 ]
+
+
+def quat_identity(shape=(), dtype: torch.dtype = torch.float32,
+                  device=None) -> torch.Tensor:
+    """Identity quaternion (1, 0, 0, 0) broadcast to ``shape + (4,)``."""
+    q = torch.zeros(tuple(shape) + (4,), dtype=dtype, device=device)
+    q[..., 0] = 1.0
+    return q
 
 
 def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:

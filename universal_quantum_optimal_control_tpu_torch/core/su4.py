@@ -15,9 +15,10 @@ Paterson–Stockmeyer Taylor series with 4 squarings.
 
 This is the plain version of the SU(4) CUDA kernels B6 and B7
 (:mod:`..ops.propagate_su4`) and the CPU oracle the tests hold them to.
-Only the ``"ri"`` layout (trailing ``(4, 4)`` matrices) is ported: the JAX
-``"soa"`` layout is a TPU tiling of the same numbers (``ROADMAP.md`` A.21).
-Every function computes in the dtype of its inputs (f32 or f64).
+Unitaries are kept in the ``"ri"`` layout (trailing ``(4, 4)`` matrices,
+batched matmuls); the JAX package's ``"soa"`` layout, a TPU tiling that
+gives the same numbers, is accepted by name and runs ``"ri"``.  Every
+function computes in the dtype of its inputs (f32 or f64).
 """
 
 from __future__ import annotations
@@ -197,25 +198,25 @@ def propagate_su4(pulses: torch.Tensor, delta1: torch.Tensor, delta2: torch.Tens
     (re, im) pair ``(..., 4, 4)``.  One segment at a time, so the memory is
     that of one batch of 4×4 matrices at any L.
 
-    ``layout``: ``"ri"`` or ``"auto"`` (the same here); ``"soa"`` is the
-    JAX package's TPU tiling and is not ported (``ROADMAP.md`` A.21).
+    ``layout``: ``"ri"``, ``"soa"`` or ``"auto"``; all three run the
+    trailing 4×4 matmuls.  The JAX package's ``"soa"`` (a matrix as 16
+    entries leading the batch) is a TPU tiling, which its ``"auto"`` picks
+    only on a TPU backend, and gives the same numbers as ``"ri"`` (its
+    ``tests/test_su4.py::test_soa_and_ri_layouts_agree``); the name is kept
+    so callers of either package pass the same arguments.
     """
-    if layout == "soa":
-        raise NotImplementedError(
-            "layout='soa' is the JAX package's TPU tiling of the same numbers "
-            "and is not ported (ROADMAP.md A.21); use layout='ri'")
-    if layout not in ("ri", "auto"):
+    if layout not in ("ri", "soa", "auto"):
         raise ValueError(f"unknown layout {layout!r} (soa | ri | auto)")
     phi, phi2, omega, tau = split_pulses(pulses, system.drive2)
     batch = torch.broadcast_shapes(phi.shape[:-1], delta1.shape, delta2.shape,
                                    epsilon.shape)
     dtype = torch.promote_types(pulses.dtype, delta1.dtype)
-    Ur = torch.eye(4, dtype=dtype, device=pulses.device).expand(batch + (4, 4))
-    Ui = torch.zeros(batch + (4, 4), dtype=dtype, device=pulses.device)
 
     def at(x, k):
         return None if x is None else x[..., k]
 
+    Ur = torch.eye(4, dtype=dtype, device=pulses.device).expand(batch + (4, 4))
+    Ui = torch.zeros(batch + (4, 4), dtype=dtype, device=pulses.device)
     for k in range(pulses.shape[-2]):
         Hr, Hi = su4_hamiltonian(phi[..., k], delta1, delta2, epsilon, system,
                                  omega=at(omega, k), phi2=at(phi2, k))

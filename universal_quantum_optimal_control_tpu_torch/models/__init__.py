@@ -12,7 +12,10 @@ from .score_embedding import (  # noqa: F401
 )
 from .serialization import (  # noqa: F401
     load_params_npz,
+    load_params_npz_tree,
     params_from_jax,
+    params_to_jax,
+    save_params_npz,
     transfer_encoder_params,
 )
 from .two_qubit import (  # noqa: F401

@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
-from .universal_transformer import _TRUNC_STD, normalize_pulse_space
+from .universal_transformer import _TRUNC_STD, _pulse_space_json, normalize_pulse_space
 
 __all__ = ["GRAPE"]
 
@@ -50,6 +50,9 @@ class GRAPE(nn.Module):
         self.num_pulses = num_pulses
         self.direct = bool(direct)
         self.num_targets = num_targets
+        self.hparams = dict(pulse_space=_pulse_space_json(self.pulse_space),
+                            num_pulses=num_pulses, num_qubits=num_qubits,
+                            direct=self.direct, num_targets=num_targets)
         P = len(self.pulse_space)
         L = num_pulses
         if self.direct:

@@ -21,8 +21,8 @@ from torch import nn
 
 from ..utils.device import resolve_device
 from .score_embedding import sinusoidal_positional_encoding
-from .universal_transformer import (EncoderBlock, _linear, init_like_flax,
-                                    normalize_pulse_space, wrap_angle)
+from .universal_transformer import (EncoderBlock, _linear, _pulse_space_json,
+                                    init_like_flax, normalize_pulse_space, wrap_angle)
 
 __all__ = ["TwoQubitQOCTransformer", "unitary_tokens", "makhlin_invariants_ri"]
 
@@ -117,6 +117,11 @@ class TwoQubitQOCTransformer(nn.Module):
         self.dtype = dtype
         self.kak_features = kak_features
         self.kak_tokens = kak_tokens
+        self.hparams = dict(pulse_space=_pulse_space_json(self.pulse_space),
+                            max_pulses=max_pulses, d_model=d_model, n_layers=n_layers,
+                            n_heads=n_heads, dropout=dropout, num_qubits=num_qubits,
+                            dtype=str(dtype), kak_features=kak_features,
+                            kak_tokens=kak_tokens)
         P = len(self.pulse_space)
         self.unitary_proj = nn.Linear(8, d_model, device=dev)
         self.encoder = nn.ModuleList(

@@ -22,6 +22,7 @@ weights carry over unchanged:
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -32,7 +33,7 @@ from torch import nn
 from ..utils.device import resolve_device
 from .score_embedding import score_features, sinusoidal_positional_encoding
 
-__all__ = ["UniversalQOCTransformer", "EncoderBlock", "init_like_flax",
+__all__ = ["UniversalQOCTransformer", "EncoderBlock", "RowDraws", "init_like_flax",
            "normalize_pulse_space", "wrap_angle"]
 
 PulseSpace = Tuple[Tuple[str, Tuple[float, float]], ...]
@@ -59,6 +60,10 @@ def normalize_pulse_space(pulse_space) -> PulseSpace:
     return tuple(items)
 
 
+def _pulse_space_json(pulse_space: PulseSpace) -> dict:
+    return {k: [lo, hi] for k, (lo, hi) in pulse_space}
+
+
 def wrap_angle(x: torch.Tensor) -> torch.Tensor:
     """Wrap to (−π, π]."""
     return torch.remainder(x + math.pi, 2.0 * math.pi) - math.pi
@@ -68,14 +73,33 @@ def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tens
     return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
 
 
+@dataclasses.dataclass(frozen=True)
+class RowDraws:
+    """The dropout bits of rows ``rows`` of a batch of ``batch`` rows: pass
+    it as ``forward``'s ``generator`` with those rows' inputs, and every
+    per-row mask is drawn for the whole batch from ``generator`` and cut to
+    the rows.  A rank of a data-sharded mesh so applies the masks that the
+    unsharded run draws."""
+
+    generator: torch.Generator
+    batch: int
+    rows: slice
+
+
 def _dropout(x: torch.Tensor, p: float, training: bool,
-             generator: Optional[torch.Generator], shape=None) -> torch.Tensor:
+             generator, shape=None) -> torch.Tensor:
     """Flax ``Dropout``: keep with probability 1 − p, scale by 1/(1 − p).
-    ``shape`` broadcasts one mask over the dimensions it sets to 1."""
+    ``shape`` broadcasts one mask over the dimensions it sets to 1;
+    ``generator`` is a ``torch.Generator`` or a :class:`RowDraws`."""
     if not training or p == 0.0:
         return x
     keep = 1.0 - p
-    mask = torch.rand(shape or x.shape, generator=generator, device=x.device) < keep
+    rows = slice(None)
+    if isinstance(generator, RowDraws):
+        if shape is None:  # a mask a row: the whole batch's, cut to these rows
+            shape, rows = (generator.batch,) + tuple(x.shape[1:]), generator.rows
+        generator = generator.generator
+    mask = torch.rand(shape or x.shape, generator=generator, device=x.device)[rows] < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -179,6 +203,11 @@ class UniversalQOCTransformer(nn.Module):
         self.middle_convention = middle_convention
         self.dtype = dtype
         n_layers = n_layers if n_layers is not None else 4 * max_pulses
+        # the constructor's arguments as JSON, for checkpoints and exports
+        self.hparams = dict(num_qubits=num_qubits, pulse_space=_pulse_space_json(self.pulse_space),
+                            max_pulses=max_pulses, d_model=d_model, n_layers=n_layers,
+                            n_heads=n_heads, dropout=dropout, finetune=self.finetune,
+                            middle_convention=middle_convention, dtype=str(dtype))
         P = len(self.pulse_space)
         self.unitary_proj = nn.Linear(8, d_model, device=dev)
         self.encoder = nn.ModuleList(
@@ -206,7 +235,8 @@ class UniversalQOCTransformer(nn.Module):
                 base_pulse: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``(B, 4)`` rotation vectors → ``(B, max_pulses, P)`` pulses.
-        ``generator`` draws the dropout masks in train mode."""
+        ``generator`` (or a :class:`RowDraws`) draws the dropout masks in
+        train mode."""
         dtype = self.dtype
         tokens, phi_offset = score_features(rotation_vector.float(),
                                             self.middle_convention)

@@ -1,7 +1,10 @@
 r"""Band checkpoints, torch-native (port of ``training/checkpoint.py``).
 
 Per curriculum band, ``base_dir/tag/`` holds ``params.pt`` (the model's
-``state_dict``, on the CPU) and ``metadata.json`` (band, best fidelity).
+``state_dict``, on the CPU) and ``metadata.json`` (band, best fidelity, and
+under ``"model"`` the model's class and constructor arguments, which the
+``.npz`` export reads: the flattened attention weights do not say
+``n_heads``).
 The JAX package writes Orbax trees instead; the two formats are not
 interchangeable.
 """

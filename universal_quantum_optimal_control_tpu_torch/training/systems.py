@@ -2,9 +2,9 @@ r"""The systems the trainer drives (port of ``training/systems.py``).
 
 A *system* samples its disorder channels and scores a pulse batch against
 its targets: :class:`SU2System` (single qubit) and :class:`SU4System` (two
-qubits).  Both train on either backend.  Only the unsharded
-(``mesh=None``) objectives are ported; the mesh waits for ``ROADMAP.md``
-A.17.
+qubits).  Both train on either backend, on one device or sharded over a
+``(data, mc)`` mesh (:mod:`..parallel.mesh`) by :func:`make_objective` and
+:func:`make_per_target_objective`.
 """
 
 from __future__ import annotations
@@ -18,34 +18,45 @@ from ..core import su4 as su4_mod
 from ..core.errors import sample_ore_ple
 from ..ops.propagate_su4 import mean_fidelity_su4_cuda, mean_fidelity_su4_plain
 from ..parallel.mc_parallel import mean_fidelity_local
+from ..parallel.mesh import MC_AXIS, Mesh
 
 __all__ = ["SU2System", "SU4System", "make_objective", "make_per_target_objective"]
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh is not ported yet (ROADMAP.md A.17: "
-            "parallel/mesh.py and the sharded objective); pass mesh=None")
-
-
-def make_objective(mesh: Optional[object], local_fn):
+def make_objective(mesh: Optional[Mesh], local_fn):
     """Lift ``local_fn(pulses, target, errors) -> (B,)`` per-target mean
-    fidelities into the batch-mean scalar objective."""
-    _no_mesh(mesh)
+    fidelities into the batch-mean scalar objective.
 
+    On a mesh the arguments are the rank's blocks (pulses and targets
+    sharded over ``data``, each disorder channel over ``(data, mc)``) and
+    every rank gets the global mean.  The gradient on a rank is that of its
+    block's mean alone: the global one is the sum over the ranks times
+    ``objective.grad_scale = 1 / (data·mc)``, the mean of equal blocks.
+    """
     def objective(pulses, target, errors):
-        return torch.mean(local_fn(pulses, target, errors))
+        f = torch.mean(local_fn(pulses, target, errors))
+        return f if mesh is None else mesh.all_mean(f)
+
+    objective.grad_scale = 1.0 if mesh is None else 1.0 / mesh.size
     return objective
 
 
-def make_per_target_objective(mesh: Optional[object], local_fn):
+def make_per_target_objective(mesh: Optional[Mesh], local_fn):
     """Like :func:`make_objective` but returns the per-target ``(B,)`` mean
-    fidelities — the input of the tail-focused (CVaR) loss."""
-    _no_mesh(mesh)
+    fidelities — the input of the tail-focused (CVaR) loss.
 
+    On a mesh each target's mean is over its mc row and the result stays
+    sharded over ``data`` (the rank's rows); the caller gathers the global
+    batch (:meth:`..parallel.mesh.Mesh.gather`).  A target's mean over M
+    is the mean of its ``mc`` blocks' means, whose gradients each rank sees
+    unscaled, so the global gradient is the sum over the ranks times
+    ``objective.grad_scale = 1 / mc``.
+    """
     def objective(pulses, target, errors):
-        return local_fn(pulses, target, errors)
+        f = local_fn(pulses, target, errors)
+        return f if mesh is None else mesh.all_mean(f, MC_AXIS)
+
+    objective.grad_scale = 1.0 if mesh is None else 1.0 / mesh.mc
     return objective
 
 

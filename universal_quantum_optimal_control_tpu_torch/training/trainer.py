@@ -27,6 +27,25 @@ without dropout unless asked, as JAX's ``_objective(..., dropout_key=None)``.
 ``fused_epoch=True`` is the counterpart of the on-device epoch scan: no host
 sync inside an epoch, losses stay on the device and are read once per
 epoch.  ``False`` reads each step's loss.
+
+On a ``(data, mc)`` mesh (:mod:`..parallel.mesh`) every rank runs the same
+loop on the same global batches and gives the unsharded run's numbers:
+
+* each rank draws the disorder of the whole ``(B, M)`` batch from the
+  trainer's generator and keeps its block (rows over ``data``, samples over
+  ``mc``), as the JAX trainer draws globally and then shards;
+* each rank runs the model on its rows of the batch, with the dropout
+  masks the unsharded run draws for those rows (each mask is drawn for the
+  whole batch and cut to the rows: :class:`..models.universal_transformer.RowDraws`), and the
+  objective on its block;
+* after the backward the parameters' gradients, each that of the rank's
+  block, are summed over all ranks in one all-reduce and scaled by the
+  objective's ``grad_scale`` (1/(data·mc) for the batch mean, 1/mc for the
+  per-target CVaR loss, each target's mean being over its mc row), so they
+  are the unsharded gradient before the clip, which reads its global norm;
+* the parameters are broadcast from rank 0 at the start of each band and
+  after a collapse recovery; B must divide by ``data`` and M by ``mc``;
+* only rank 0 writes checkpoints, resume states, pulses and metrics.
 """
 
 from __future__ import annotations
@@ -41,6 +60,8 @@ import numpy as np
 import torch
 
 from ..core import objectives
+from ..models.universal_transformer import RowDraws
+from ..parallel.mesh import DATA_AXIS, MC_AXIS, Mesh, shard_spec
 from ..utils.device import resolve_device
 from .checkpoint import save_checkpoint
 from .metrics import MetricsLogger
@@ -141,7 +162,8 @@ class Trainer:
       model: an ``nn.Module`` mapping rotation vectors to pulses; it is
         moved to ``device``.
       config: hyperparameters.
-      mesh: must be ``None`` (the mesh is not ported yet; raises).
+      mesh: optional ``(data, mc)`` mesh, one rank per cell; every rank
+        constructs its trainer with the same arguments.
       base_pulse: finetune base pulse forwarded to a ``finetune`` model.
       system: quantum system; defaults to :class:`SU2System` with the
         configured backend.
@@ -150,12 +172,16 @@ class Trainer:
     """
 
     def __init__(self, model: torch.nn.Module, config: TrainConfig = TrainConfig(),
-                 mesh: Optional[object] = None,
+                 mesh: Optional[Mesh] = None,
                  base_pulse: Optional[torch.Tensor] = None,
                  system: Any = None, device=None) -> None:
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.config = config
+        self.mesh = mesh
+        self.is_writer = mesh is None or mesh.rank == 0
+        if mesh is not None:
+            mesh.block(config.monte_carlo, MC_AXIS)  # raises on uneven shards
         self.base_pulse = (None if base_pulse is None else
                            torch.as_tensor(base_pulse, dtype=torch.float32,
                                            device=self.device))
@@ -219,29 +245,65 @@ class Trainer:
     # Steps
     # ------------------------------------------------------------------
 
-    def _apply_model(self, rv: torch.Tensor,
-                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def _apply_model(self, rv: torch.Tensor, generator=None) -> torch.Tensor:
         kwargs: Dict[str, Any] = {"generator": generator}
         if getattr(self.model, "finetune", False):
             kwargs["base_pulse"] = self.base_pulse
         return self.model(rv, **kwargs)
 
+    def _pulses(self, rv: torch.Tensor, dropout: bool) -> Tuple[torch.Tensor, slice]:
+        """The model's pulses for the rank's rows of the batch ``rv`` (all
+        rows without a mesh) and those rows; dropout, from the trainer's
+        generator, only when asked, with the whole batch's masks."""
+        self.model.train(dropout)
+        rows = self._rows(rv.shape[0])
+        generator = None
+        if dropout:
+            generator = (self.generator if self.mesh is None else
+                         RowDraws(self.generator, rv.shape[0], rows))
+        return self._apply_model(rv[rows], generator), rows
+
     def sample_errors(self, batch: int, band: CurriculumBand):
+        """The disorder of a whole ``(batch, M)`` batch (on a mesh too)."""
         return self.system.sample_errors(
             self.generator, (batch, self.config.monte_carlo), band.delta_std,
             band.epsilon_std)
 
+    # ------------------------------------------------------------------
+    # Data placement on a mesh
+    # ------------------------------------------------------------------
+
+    def _place_params(self) -> None:
+        """Rank 0's parameters on every rank (once a band, not a step)."""
+        if self.mesh is not None:
+            self.mesh.broadcast_(list(self.model.parameters()))
+
+    def _rows(self, n: int) -> slice:
+        """The rank's rows of a batch of ``n`` targets."""
+        return slice(None) if self.mesh is None else self.mesh.block(n, DATA_AXIS)
+
+    def _place_errors(self, errors):
+        if self.mesh is None:
+            return errors
+        block = shard_spec(self.mesh, DATA_AXIS, MC_AXIS)
+        return tuple(block(e) for e in errors)
+
     def objective(self, rv: torch.Tensor, q_target: torch.Tensor, errors,
                   dropout: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(loss, mean E[F])`` on explicit disorder ``errors``; dropout (from
-        the trainer's generator) only when asked."""
-        self.model.train(dropout)
-        pulses = self._apply_model(rv, self.generator if dropout else None)
+        the trainer's generator) only when asked.  On a mesh the arguments
+        are the global batch and its whole disorder; the rank computes its
+        block and every rank returns the global values, whose gradient here
+        is the rank's block's alone (:meth:`train_step` sums the ranks')."""
+        pulses, rows = self._pulses(rv, dropout)
+        q_target, errors = q_target[rows], self._place_errors(errors)
         if self._per_target_fid is not None:
             # CVaR: the mean loss over the worst `tail_focus` fraction of
             # targets; the losses decrease in E[F], so the top-k losses are
             # the worst-k targets
             f = self._per_target_fid(pulses, q_target, errors)
+            if self.mesh is not None:
+                f = self.mesh.gather(f, DATA_AXIS)
             k = max(1, round(self.config.tail_focus * f.shape[0]))
             worst = torch.topk(self._loss_of_mean_fid(f), k).values
             w = self.config.tail_weight
@@ -259,15 +321,22 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss, mean_fid = self.objective(rv, q_target, errors, dropout)
         loss.backward()
+        if self.mesh is not None:
+            # each rank's gradient is its block's: their sum over the ranks,
+            # scaled, is the unsharded one
+            obj = self._per_target_fid if self._per_target_fid is not None else self._mean_fid
+            self.mesh.all_reduce_many_(
+                [p.grad for p in self.model.parameters() if p.grad is not None],
+                obj.grad_scale)
         self.apply_gradients()
         return loss.detach(), mean_fid.detach()
 
     @torch.no_grad()
     def eval_step(self, rv: torch.Tensor, q_target: torch.Tensor,
                   band: CurriculumBand) -> torch.Tensor:
-        errors = self.sample_errors(rv.shape[0], band)
-        self.model.eval()
-        return self._mean_fid(self._apply_model(rv), q_target, errors)
+        errors = self._place_errors(self.sample_errors(rv.shape[0], band))
+        pulses, rows = self._pulses(rv, dropout=False)
+        return self._mean_fid(pulses, q_target[rows], errors)
 
     @torch.no_grad()
     def predict(self, rv: torch.Tensor) -> torch.Tensor:
@@ -321,6 +390,10 @@ class Trainer:
         else:
             self.model.load_state_dict(params)
         self.reset_optimizer()
+        if self.mesh is not None:
+            for n in (min(cfg.batch_size, train_rv.shape[0]),
+                      min(cfg.batch_size, eval_rv.shape[0])):
+                self.mesh.block(n, DATA_AXIS)  # raises on uneven shards
 
         n_train = train_rv.shape[0]
         n_eval = eval_rv.shape[0]
@@ -343,7 +416,7 @@ class Trainer:
             start_band, start_epoch = st.band_idx, st.epoch
             resume_best_params, resume_best_fid = st.best_params, st.best_fid
 
-        profiling = cfg.profile_dir is not None
+        profiling = cfg.profile_dir is not None and self.is_writer
         fused = cfg.fused_epoch and not profiling
         profiler = None
         steps_done = 0
@@ -361,8 +434,10 @@ class Trainer:
             else:
                 best_fid, best_params = 0.0, _snapshot(self.model)
             band_hist = {"band": dataclasses.asdict(band), "eval_fid": [],
-                         "train_loss": [], "recoveries": 0}
+                         "train_loss": [], "step_loss": [], "step_fid": [],
+                         "recoveries": 0}
             below_best = 0  # consecutive epochs spent in a collapsed basin
+            self._place_params()
 
             epoch0 = start_epoch if band_idx == start_band else 0
             for epoch in range(epoch0, epochs):
@@ -375,20 +450,21 @@ class Trainer:
                 else:
                     epoch_rv, epoch_qt = train_rv, train_q_target
 
-                losses = []
+                losses, step_fids = [], []
                 for b in range(n_batches):
                     rv = epoch_rv[b * bs:(b + 1) * bs]
                     qt = epoch_qt[b * bs:(b + 1) * bs]
                     if profiling and steps_done == 1:
                         # skip step 0 (kernel build, allocator warm-up)
                         profiler = _start_profiler(self.device)
-                    loss, _ = self.train_step(rv, qt, self.sample_errors(bs, band),
-                                              dropout=True)
+                    loss, step_fid = self.train_step(rv, qt, self.sample_errors(bs, band),
+                                                     dropout=True)
                     steps_done += 1
                     if profiling and steps_done == 1 + cfg.profile_steps:
                         _stop_profiler(profiler, self.device, cfg.profile_dir)
                         profiling = False
                     losses.append(loss if fused else loss.item())
+                    step_fids.append(step_fid if fused else step_fid.item())
 
                 fids = []
                 for b in range(n_eval_batches):
@@ -398,12 +474,17 @@ class Trainer:
                     fids.append(f if fused else f.item())
                 if fused:
                     # the epoch's one host read
-                    train_loss, eval_fid = torch.stack(
-                        [torch.stack(losses).mean(), torch.stack(fids).mean()]).tolist()
+                    stacked = torch.stack(losses)
+                    vals = torch.cat([torch.stack([stacked.mean(), torch.stack(fids).mean()]),
+                                      stacked, torch.stack(step_fids)]).tolist()
+                    train_loss, eval_fid = vals[:2]
+                    losses, step_fids = vals[2:2 + n_batches], vals[2 + n_batches:]
                 else:
                     train_loss, eval_fid = float(np.mean(losses)), float(np.mean(fids))
                 band_hist["train_loss"].append(train_loss)
                 band_hist["eval_fid"].append(eval_fid)
+                band_hist["step_loss"].extend(losses)
+                band_hist["step_fid"].extend(step_fids)
 
                 if eval_fid > best_fid:
                     best_fid = eval_fid
@@ -416,13 +497,14 @@ class Trainer:
                         # collapsed basin: restart from the band best with
                         # fresh optimizer moments
                         self.model.load_state_dict(best_params)
+                        self._place_params()
                         self.reset_optimizer()
                         band_hist["recoveries"] += 1
                         below_best = 0
                 else:
                     below_best = 0
 
-                if logger is not None:
+                if logger is not None and self.is_writer:
                     dt = time.perf_counter() - t_epoch
                     # sequence propagations per second: a train step
                     # propagates bs × MC sequences, an eval step eval_bs × MC
@@ -435,7 +517,7 @@ class Trainer:
                         throughput_props_s=round(props / dt, 1),
                     )
 
-                if (cfg.state_every and state_dir is not None
+                if (cfg.state_every and state_dir is not None and self.is_writer
                         and (epoch + 1) % cfg.state_every == 0):
                     save_train_state(
                         state_dir,
@@ -452,12 +534,15 @@ class Trainer:
             band_hist["best_fid"] = best_fid
             history["bands"].append(band_hist)
 
-            if save_dir is not None:
+            if save_dir is not None and self.is_writer:
                 tag = (f"band{band_idx}_delta{band.delta_std:g}"
                        f"_eps{band.epsilon_std:g}")
-                save_checkpoint(save_dir, best_params, tag=tag,
-                                metadata={"band": dataclasses.asdict(band),
-                                          "best_fid": best_fid})
+                meta = {"band": dataclasses.asdict(band), "best_fid": best_fid}
+                if hasattr(self.model, "hparams"):
+                    # what an export needs to rebuild the Flax layout (n_heads)
+                    meta["model"] = {"class": type(self.model).__name__,
+                                     **self.model.hparams}
+                save_checkpoint(save_dir, best_params, tag=tag, metadata=meta)
                 # the best model's pulses on the train set, in eval mode
                 pulses = [self.predict(train_rv[b * bs:(b + 1) * bs]).cpu().numpy()
                           for b in range(n_batches)]
@@ -476,11 +561,11 @@ class Trainer:
             self.model.load_state_dict(params)
         gen = generator if generator is not None else \
             torch.Generator(device=self.device).manual_seed(0)
-        errors = self.system.sample_errors(
-            gen, (rv.shape[0], self.config.monte_carlo), delta_std, epsilon_std)
+        errors = self._place_errors(self.system.sample_errors(
+            gen, (rv.shape[0], self.config.monte_carlo), delta_std, epsilon_std))
         with torch.no_grad():
-            self.model.eval()
-            return float(self._mean_fid(self._apply_model(rv), q_target, errors))
+            pulses, rows = self._pulses(rv, dropout=False)
+            return float(self._mean_fid(pulses, q_target[rows], errors))
 
 
 def _start_profiler(device: torch.device):

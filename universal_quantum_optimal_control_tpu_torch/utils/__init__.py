@@ -1,2 +1,4 @@
-from .config import load_model_params  # noqa: F401
+from . import config  # noqa: F401
+
+from .config import RunConfig, load_model_params, load_run_config  # noqa: F401
 from .device import resolve_device  # noqa: F401

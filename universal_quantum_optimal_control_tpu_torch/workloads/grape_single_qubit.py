@@ -14,7 +14,10 @@ the port that is the eager plain path; ``--backend pallas`` runs kernel B1
 forward and B3 + B2 backward), except:
 
 * ``--device`` (default ``cuda``; the CPU tests pass ``cpu``);
-* ``--mesh`` raises: the mesh is not ported yet (``ROADMAP.md`` A.17);
+* ``--mesh data,mc`` runs one rank per cell under ``torchrun`` or any
+  launcher that sets ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
+  ``MASTER_PORT``, as the universal CLI does (``--direct`` trains one
+  target, which does not shard over ``data``: use ``data`` 1);
 * the targets and the disorder come from ``torch.Generator``\ s seeded
   with ``--seed``, so they differ from the JAX package's draws.
 
@@ -30,10 +33,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.su2 import rotation_vector_to_quat
 from ..data import build_su2_dataset
 from ..models import GRAPE, normalize_pulse_space
+from ..parallel.mesh import mesh_from_flag
 from ..training import CurriculumBand, MetricsLogger, TrainConfig, Trainer
 from ..utils import load_model_params, resolve_device
 
@@ -56,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "forward and B3 + B2 backward")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     p.add_argument("--mesh", type=str, default=None,
-                   help="'data,mc' shards; not ported yet (raises)")
+                   help="'data,mc': one rank per cell, under torchrun or a "
+                        "launcher that sets RANK, WORLD_SIZE, MASTER_ADDR")
     p.add_argument("--fused_epoch", action=argparse.BooleanOptionalAction, default=True,
                    help="no host sync inside an epoch (default on; "
                         "--no-fused_epoch reads every step's loss)")
@@ -77,11 +83,16 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Run the CLI; returns the training history."""
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: a device mesh is not ported yet (ROADMAP.md A.17: "
-            "parallel/mesh.py and the sharded objective)")
-    device = resolve_device(args.device)
+    mesh, device, started = mesh_from_flag(args.mesh, args.device)
+    try:
+        return _run(args, mesh, resolve_device(device))
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run(args, mesh, device) -> dict:
+    writer = mesh is None or mesh.rank == 0
 
     params_json = load_model_params(args.config)
     model = GRAPE(pulse_space=normalize_pulse_space(params_json["pulse_space"]),
@@ -94,7 +105,7 @@ def main(argv=None) -> dict:
         fused_epoch=args.fused_epoch, lr_schedule=args.lr_schedule,
         lr_schedule_steps=3 * args.num_epoch * max(args.batch_size, 1),
     )
-    trainer = Trainer(model, cfg, device=device)
+    trainer = Trainer(model, cfg, mesh=mesh, device=device)
 
     if args.direct:
         # classic GRAPE: one pulse table, one target; robustness comes from
@@ -114,13 +125,15 @@ def main(argv=None) -> dict:
                                              device=device)
 
     curriculum = [CurriculumBand(d) for d in (0.4, 0.7, 1.0)]
-    with MetricsLogger(path=f"{args.save_path}/metrics.csv", echo=True) as logger:
+    with MetricsLogger(path=f"{args.save_path}/metrics.csv" if writer else None,
+                       echo=writer) as logger:
         _, history = trainer.train(train_rv, train_qt, eval_rv, eval_qt,
                                    curriculum=curriculum, save_dir=args.save_path,
                                    logger=logger)
 
     best = max(b["best_fid"] for b in history["bands"])
-    print(f"done; best eval fidelity across bands: {best:.4f}")
+    if writer:
+        print(f"done; best eval fidelity across bands: {best:.4f}")
     return history
 
 

@@ -11,13 +11,22 @@ SCORE-embedding transformer, grid train set / random eval set, curriculum
   PyTorch version, which must not be the main path on a card.  ``--backend
   xla`` stays for comparison.
 * ``--device`` (default ``cuda``; the CPU tests pass ``cpu``).
-* ``--mesh`` raises: the mesh is not ported yet (``ROADMAP.md`` A.17).
+* ``--mesh data,mc`` runs one rank per cell of the mesh under ``torchrun
+  --nproc_per_node=data·mc`` (or any launcher that sets ``RANK``,
+  ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``), each rank on
+  ``cuda:{LOCAL_RANK % device_count}``; backend NCCL where each rank has
+  its own card, else gloo.  The ranks give the unsharded run's numbers
+  (``training/trainer.py``); only rank 0 writes and prints.  A mesh that is
+  not the world size raises ``ValueError: mesh 3x5 != 1 devices``.
 * ``--resume`` is passed on to the trainer (the JAX CLI parses it but never
   passes it on).
 
 Usage:
     python -m universal_quantum_optimal_control_tpu_torch.workloads.universal_single_qubit \
         --num_epoch 1000 --save_path weights/single_qubit_control
+    torchrun --nproc_per_node=4 -m \
+        universal_quantum_optimal_control_tpu_torch.workloads.universal_single_qubit \
+        --mesh 2,2 --num_epoch 1000 --save_path weights/single_qubit_control
 """
 
 from __future__ import annotations
@@ -27,10 +36,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import build_su2_dataset
 from ..models import (UniversalQOCTransformer, load_params_npz, normalize_pulse_space,
                       params_from_jax, transfer_encoder_params)
+from ..parallel.mesh import mesh_from_flag
 from ..training import CurriculumBand, MetricsLogger, TrainConfig, Trainer
 from ..utils import load_model_params, resolve_device
 
@@ -62,7 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
     p.add_argument("--mesh", type=str, default=None,
-                   help="'data,mc' shards; not ported yet (raises)")
+                   help="'data,mc': one rank per cell, under torchrun or a "
+                        "launcher that sets RANK, WORLD_SIZE, MASTER_ADDR")
     p.add_argument("--train_size", type=int, default=10000)
     p.add_argument("--eval_size", type=int, default=1000)
     p.add_argument("--seed", type=int, default=0)
@@ -115,8 +127,21 @@ def load_base_pulse(path: str) -> np.ndarray:
 
 def main(argv=None) -> dict:
     """Run the CLI; returns the training history."""
-    args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    return run(build_parser().parse_args(argv))[1]
+
+
+def run(args):
+    """The CLI on parsed arguments; returns ``(trainer, history)``."""
+    mesh, device, started = mesh_from_flag(args.mesh, args.device)
+    try:
+        return _run(args, mesh, resolve_device(device))
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run(args, mesh, device):
+    writer = mesh is None or mesh.rank == 0
 
     model_params = load_model_params(args.config)
     model_params["pulse_space"] = normalize_pulse_space(model_params["pulse_space"])
@@ -145,7 +170,6 @@ def main(argv=None) -> dict:
         shuffle=args.shuffle, recover_collapse=args.recover_collapse,
         state_every=args.state_every,
     )
-    mesh = tuple(int(x) for x in args.mesh.split(",")) if args.mesh else None
     trainer = Trainer(model, cfg, mesh=mesh, base_pulse=base_pulse, device=device)
 
     # the target sets are drawn on the CPU, so they are the same on any device
@@ -160,18 +184,21 @@ def main(argv=None) -> dict:
         src = params_from_jax(load_params_npz(args.pretrained_encoder))
         params = transfer_encoder_params(src, trainer.init_params(),
                                          also=("unitary_proj",))
-        print(f"transferred encoder from {args.pretrained_encoder}")
+        if writer:
+            print(f"transferred encoder from {args.pretrained_encoder}")
 
     curriculum = [CurriculumBand(d) for d in (0.4, 0.7, 1.0)]
-    with MetricsLogger(path=f"{args.save_path}/metrics.csv", echo=True) as logger:
+    with MetricsLogger(path=f"{args.save_path}/metrics.csv" if writer else None,
+                       echo=writer) as logger:
         _, history = trainer.train(
             train_rv, train_qt, eval_rv, eval_qt,
             curriculum=curriculum, params=params,
             save_dir=args.save_path, logger=logger, resume=args.resume)
 
     best = max(b["best_fid"] for b in history["bands"] if b["best_fid"] is not None)
-    print(f"done; best eval fidelity across bands: {best:.4f}")
-    return history
+    if writer:
+        print(f"done; best eval fidelity across bands: {best:.4f}")
+    return trainer, history
 
 
 if __name__ == "__main__":
