@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 r"""Smoke run of the PyTorch port on one CUDA card: build, check, serve,
 score, train, the two-qubit serving, training and per-gate paths, the
-single-qubit variants, GRAPE, polish and dCRAB, then time.
+single-qubit variants, GRAPE, polish and dCRAB, the mesh, the runner, the
+figures' numbers, then time.
 
     python3 chip_smoke.py
 
-Twenty-one phases, each printing its own line with its seconds:
+Twenty-three phases, each printing its own line with its seconds:
 
 1. device: the card, torch and CUDA versions, ``nvidia-smi`` name and power limit;
 2. build: one ``nvcc`` call per source, started together
@@ -121,7 +122,28 @@ Twenty-one phases, each printing its own line with its seconds:
     (5 named gates, 3 random targets), the f16 and int8 exports equal to a
     numpy round trip of the trainer's weights, each export's E[F] through B1
     (M = 2¹⁶) printed;
-21. time: each kernel at the shape of each path that runs it, with CUDA
+21. viz: the single-qubit figures' numbers (``analysis/``; the card's
+    machine has no matplotlib, so the figures themselves are checked by the
+    CPU tests) for the ``length_100`` flagship from its ``.npz`` at the
+    demo's defaults (X(π), M = 10 000), each through B3: ``fidelity_grid``
+    (1000 × 50 samples), ``mc_fidelity_estimate``, ``fidelity_by_std`` (199 σ
+    × 10 000 samples in one launch) for ``length_100`` and
+    ``length_100_p4``, the Bloch trajectories of 12 samples and their E[F],
+    ``gate_parity_curves("length_100")`` (5 gates, model and SCORE: 20
+    launches, the SCORE tables up to L = 2019) and
+    ``compare_pulse_strategies`` on X(π); the grid and sweeps held to their
+    plain versions (the L = 100 rule; the longest SCORE table on 3 σ), the
+    Bloch endpoints to B3's product rotated onto ẑ at P = 2 and P = 4, the
+    parity E[F] at σ_δ = 1 within 5 combined SE of the JAX package's CPU
+    values (printed beside ``docs/model_vs_score_length100.md``'s), SCORE's
+    total time exactly and the model's within 0.01π;
+22. viz-su4: the two-qubit figures' numbers through B7: the bundle figure's
+    curves (``analysis/two_qubit_bundle_figure.py``, 5 gates × 12 σ × 2000)
+    at σ_δ ∈ {0.1, 0.2, 0.3} within 5 combined SE of the JAX package's CPU
+    values, and ``render_two_qubit_artifacts``' grid (61²) and sweep (20 σ ×
+    2000) of ``two_qubit_d2_kak`` CZ and ``cz_drive2``, each against its
+    plain version;
+23. time: each kernel at the shape of each path that runs it, with CUDA
     events (for B1, B2, B3 and B7 also the device's time of the kernels alone,
     each call queued behind a long one: their wrappers' host time exceeds a
     short launch's), beside its plain version, its bound and its ptxas registers,
@@ -137,14 +159,16 @@ Twenty-one phases, each printing its own line with its seconds:
     B3 and B2 also at slice 2's GRAPE, polish and ceiling shapes, the
     ceiling's at its default (80, 100, 4, 4096) though its run is cut, and
     at the mesh's local shapes 200 × 100 × 2 × 500 and 100 × 100 × 2 × 1000,
-    with both ranks' launches, and the runner's training shape).
+    with both ranks' launches, the runner's training shape, and B3 and B7
+    at the figures' shapes).
 
 Phases 6–7 are the single-qubit serving path, phase 8's CLI run the
 training path, phases 9–10 the two-qubit serving path, phase 11's CLI run
 the two-qubit training path, phases 12–13 the two-qubit per-gate paths
 (GRAPE, polish), phase 14 the two-qubit demo variants and phases 15–18
 slice 2's paths (the variants, GRAPE, the polish and ceiling, dCRAB),
-phase 19 the mesh's (in each rank) and phase 20 the runner's; the
+phase 19 the mesh's (in each rank), phase 20 the runner's and phases
+21–22 the figures' and the demo renderer's; the
 kernels' launch counters are set to 0 just before each and read just
 after, and every kernel of the path must have been launched there.  No path runs B8
 (the JAX package has no caller of its ``_bwd_kernel`` either): its row
@@ -1735,6 +1759,307 @@ def run_phase(dev, tmp: Path) -> dict:
     return res
 
 
+# [viz] and [viz-su4]: the figures' numbers at the demo's settings
+VIZ_AXIS = (1.0, 0.0, 0.0, math.pi)  # the demo's defaults: X(π)
+VIZ_MC = 10_000  # the demo's and the figures' M
+VIZ_BLOCH_SAMPLES = 12  # the demo's animation
+VIZ_SE_K = 5  # Monte-Carlo values held within 5 combined standard errors
+VIZ_MODEL_T_TOL = 0.01  # the model's total time, π units, card against CPU
+VIZ_SCORE_SIGMAS = (0, 99, 198)  # σ_δ 0.01, 1.00, 1.99: the long tables' subset
+# gate_parity_curves("length_100", monte_carlo=10000) of the JAX package on
+# the CPU, from
+#   JAX_PLATFORMS=cpu python -c "from universal_quantum_optimal_control_tpu.analysis \
+#       import parity_figure as p; print(p.gate_parity_curves('length_100', \
+#       monte_carlo=10000, stds=[1.0]))"
+# (its E[F] at σ_δ = 1 does not depend on the sweep's stds): gate → {label:
+# (E[F], SE, total time in π units)}; SCORE's time as numpy sums it
+JAX_PARITY = {
+    "X": {"model": (0.947708, 0.001178, 6.776845),
+          "SCORE": (0.737086, 0.002528, 14.994160681563658)},
+    "X(pi/2)": {"model": (0.949458, 0.001182, 6.594214),
+                "SCORE": (0.72052, 0.002601, 14.493039719770605)},
+    "Y": {"model": (0.947708, 0.001178, 6.776845),
+          "SCORE": (0.737086, 0.002528, 14.994160681563658)},
+    "Z(pi/4)": {"model": (0.948931, 0.001225, 6.779712),
+                "SCORE": (0.71709, 0.0026, 73.2031577361541)},
+    "H": {"model": (0.949793, 0.001175, 6.478209),
+          "SCORE": (0.707063, 0.002581, 29.487197972822557)},
+}
+# docs/model_vs_score_length100.md (the JAX package's published table):
+# gate → (model E[F], SCORE E[F]) at σ_δ = 1
+DOCS_PARITY = {"X": (0.9477, 0.7371), "X(pi/2)": (0.9494, 0.7205), "Y": (0.9477, 0.7371),
+               "Z(pi/4)": (0.9490, 0.7171), "H": (0.9500, 0.7071)}
+VIZ4_MC = 2000  # the bundle figure's and the two-qubit demo's M
+VIZ4_SIGMAS = (1, 3, 5)  # the bundle figure's σ_δ 0.1, 0.2, 0.3
+# render_bundle_figure(two_qubit_gates.npz, ..., monte_carlo=2000) of the JAX
+# package on the CPU (seed 0), from
+#   JAX_PLATFORMS=cpu python -m \
+#       universal_quantum_optimal_control_tpu.analysis.two_qubit_bundle_figure \
+#       --out /tmp/bundle.png
+# gate → {σ_δ: (E[F], SE)}
+JAX_BUNDLE_CURVES = {
+    "cz": {"0.10": (0.979157, 0.000568), "0.20": (0.907171, 0.00273),
+           "0.30": (0.764124, 0.005191)},
+    "zz(pi/4)": {"0.10": (0.98659, 0.000356), "0.20": (0.935284, 0.002086),
+                 "0.30": (0.814876, 0.004549)},
+    "cnot": {"0.10": (0.977308, 0.000559), "0.20": (0.916444, 0.002445),
+             "0.30": (0.784017, 0.005002)},
+    "iswap": {"0.10": (0.978081, 0.000544), "0.20": (0.913015, 0.00247),
+              "0.30": (0.777401, 0.004886)},
+    "sqrt_swap": {"0.10": (0.983637, 0.000419), "0.20": (0.92673, 0.002281),
+                  "0.30": (0.797175, 0.004838)},
+}
+
+
+def su2_fid_plain(p, q_t, delta, eps, dtype):
+    """F of one ``(L, P)`` table on flat samples through B3's plain version
+    in ``dtype``."""
+    from universal_quantum_optimal_control_tpu_torch.core.su2 import quat_fidelity
+    from universal_quantum_optimal_control_tpu_torch.ops.propagate_su2 import \
+        propagate_mc_plain
+    q = propagate_mc_plain(p[None].to(dtype), delta.reshape(1, -1).to(dtype),
+                           eps.reshape(1, -1).to(dtype))[0]
+    return quat_fidelity(q, q_t[None].to(dtype))
+
+
+def plain_rule(kernel, plain32, plain64, floor: float = FID_TOL):
+    """The L ≥ 100 rule: |kernel − plain f32| within the larger of ``floor``
+    and twice the plain f32 version's own error against f64.  Returns
+    ``(err, tol)``."""
+    return max_err(kernel, plain32), max(floor, 2 * max_err(plain32, plain64))
+
+
+def viz_su2(dev) -> dict:
+    """[viz]: the single-qubit figures' numbers at the demo's defaults, each
+    B3 output held to its plain version, the Bloch endpoints to B3's product
+    and the parity E[F] to the JAX package's CPU values."""
+    from universal_quantum_optimal_control_tpu_torch.analysis import (bloch, compare,
+                                                                      parity_figure, plots)
+    from universal_quantum_optimal_control_tpu_torch.analysis.score_pulses import \
+        build_score_pulses
+    from universal_quantum_optimal_control_tpu_torch.core import rotation_vector_to_quat
+    from universal_quantum_optimal_control_tpu_torch.core.errors import sample_ore_ple
+    from universal_quantum_optimal_control_tpu_torch.data import named_gate_rotation_vectors
+    from universal_quantum_optimal_control_tpu_torch.demo import app
+    from universal_quantum_optimal_control_tpu_torch.ops.propagate_su2 import \
+        propagate_mc_cuda
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def run():
+        out = {"tables": {}, "bloch": {}}
+        for v in ("length_100", "length_100_p4"):
+            p, q = app.compute_pulses(v, *VIZ_AXIS, device=dev)
+            out["tables"][v] = (torch.as_tensor(p, device=dev).contiguous(), q.to(dev))
+            d, e = sample_ore_ple(gen(2031), (VIZ_BLOCH_SAMPLES,), 0.5, 0.05)
+            traj = bloch.bloch_trajectories(p, d, e, device=dev)
+            ef = plots._mc_stats(out["tables"][v][0], q.to(dev), d, e)[0]  # the animation's E[F]
+            out["bloch"][v] = (d, e, traj, float(ef))
+            out[f"sweep {v}"] = plots.fidelity_by_std(p, q, monte_carlo=VIZ_MC,
+                                                      generator=gen(2030), device=dev)
+        p, q = out["tables"]["length_100"]
+        out["grid"] = plots.fidelity_grid(p, q, device=dev)
+        out["estimate"] = plots.mc_fidelity_estimate(p, q, 1.0, 0.05, VIZ_MC, device=dev)
+        out["parity"] = parity_figure.gate_parity_curves("length_100", monte_carlo=VIZ_MC,
+                                                         device=dev)
+        score = build_score_pulses(dict(parity_figure.GATE_TO_SCORE))
+        out["compare"] = compare.compare_pulse_strategies(
+            {"model": p.cpu().numpy(), "SCORE": score["X"]}, q, monte_carlo=VIZ_MC,
+            device=dev)[0]
+        out["score"] = score
+        return out
+
+    t0 = time.perf_counter()
+    out, launches = run_path(run, ["B3"])
+    t_path = time.perf_counter() - t0
+    p, q = out["tables"]["length_100"]
+    L = p.shape[0]
+    checks = {}
+    # the grid: 1000 × 50 samples in one B3 launch, against its plain version
+    dg, eg, F = out["grid"]
+    dd, ee = torch.meshgrid(torch.as_tensor(dg, device=dev), torch.as_tensor(eg, device=dev),
+                            indexing="ij")
+    F = torch.as_tensor(F, device=dev).reshape(-1)
+    checks["grid"] = plain_rule(F, *(su2_fid_plain(p, q, dd, ee, dt)
+                                     for dt in (torch.float32, torch.float64)))
+    # the sweeps: 199 σ × 10 000 samples in one B3 launch, mean and SE
+    # against the plain version on the same draws
+    for v in ("length_100", "length_100_p4"):
+        pv, qv = out["tables"][v]
+        stds, mean, se = out[f"sweep {v}"]
+        nd, ne = plots._sweep_draws(gen(2030), len(stds), VIZ_MC, 0.05)
+        st = torch.as_tensor(stds, device=dev)[:, None]
+        ref = [su2_fid_plain(pv, qv, nd * st, ne, dt).reshape(len(stds), -1)
+               for dt in (torch.float32, torch.float64)]
+        got = torch.as_tensor(np.stack([mean, se]), device=dev)
+        checks[f"sweep {v}"] = plain_rule(got, *(torch.stack(
+            [r.mean(1), r.std(1, correction=0) / math.sqrt(VIZ_MC)]) for r in ref))
+        if not (np.all(np.isfinite(mean)) and 0 < mean.min() and mean.max() <= 1
+                and mean[-1] < mean[0]):
+            raise AssertionError(f"{v} E[F](sigma) outside (0, 1] or not falling: {mean}")
+    # the longest SCORE table (Z(π/4), L = 2019) on a subset of σ: the
+    # parity sweep's values against the plain version on its draws
+    zp = torch.as_tensor(out["score"]["Z(pi/4)"], device=dev).contiguous()
+    zsweep = out["parity"]["Z(pi/4)"]["SCORE"]
+    sub = list(VIZ_SCORE_SIGMAS)
+    zs = torch.as_tensor(zsweep["stds"][sub], device=dev)
+    qz = rotation_vector_to_quat(named_gate_rotation_vectors(device=dev)["Z(pi/4)"])
+    nd, ne = plots._sweep_draws(gen(0), 199, VIZ_MC, 0.05)
+    ref = [su2_fid_plain(zp, qz, nd[sub] * zs[:, None], ne[sub], dt).reshape(len(sub), -1)
+           for dt in (torch.float32, torch.float64)]
+    got = torch.as_tensor(np.stack([zsweep["mean"][sub], zsweep["se"][sub]]), device=dev)
+    checks["SCORE Z(pi/4) subset"] = plain_rule(got, *(torch.stack(
+        [r.mean(1), r.std(1, correction=0) / math.sqrt(VIZ_MC)]) for r in ref))
+    # Bloch: each endpoint against B3's product rotated onto ẑ (a check
+    # launch, outside the path's count)
+    for v, (d, e, traj, _) in out["bloch"].items():
+        pv, _ = out["tables"][v]
+        qk = propagate_mc_cuda(pv[None], d[None].contiguous(), e[None].contiguous())[0]
+        end_k = bloch.quat_rotation_matrix(qk)[..., 2]
+        ends = [bloch._trajectories(pv.to(dt), d.to(dt), e.to(dt),
+                                    torch.tensor([0.0, 0.0, 1.0], dtype=dt, device=dev))[:, -1]
+                for dt in (torch.float32, torch.float64)]
+        if not np.allclose(traj[:, -1], ends[0].cpu().numpy(), atol=1e-7, rtol=0):
+            raise AssertionError(f"{v}: bloch_trajectories differs from its own rerun")
+        checks[f"bloch {v}"] = plain_rule(end_k, *ends)
+    for name, (err, tol) in checks.items():
+        if not err <= tol:
+            raise AssertionError(f"[viz] {name}: kernel against plain {err:.3e} > {tol:.2e}")
+    # the parity E[F] against the JAX package's CPU values
+    worst_k, worst_t = 0.0, 0.0
+    for gate, entry in out["parity"].items():
+        row_ = []
+        for label in ("model", "SCORE"):
+            e = entry[label]
+            ef_j, se_j, t_j = JAX_PARITY[gate][label]
+            k = abs(e["EF"] - ef_j) / math.hypot(e["EF_se"], se_j)
+            worst_k = max(worst_k, k)
+            if not k <= VIZ_SE_K:
+                raise AssertionError(f"parity {gate} {label}: E[F] {e['EF']:.5f} vs JAX CPU "
+                                     f"{ef_j:.5f}, {k:.2f} combined SE")
+            if label == "SCORE" and e["total_time_pi"] != t_j:
+                raise AssertionError(f"parity {gate} SCORE T {e['total_time_pi']!r} != {t_j!r}")
+            dt_ = abs(e["total_time_pi"] - t_j)
+            if label == "model":
+                worst_t = max(worst_t, dt_)
+                if not dt_ <= VIZ_MODEL_T_TOL:
+                    raise AssertionError(f"parity {gate} model T {e['total_time_pi']:.4f}π vs "
+                                         f"CPU {t_j:.4f}π")
+            row_.append(f"{label} {e['EF']:.4f}±{e['EF_se']:.4f} (JAX CPU {ef_j:.4f}, docs "
+                        f"{DOCS_PARITY[gate][label == 'SCORE']:.4f}), T {e['total_time_pi']:.2f}π")
+        print(f"  parity {gate}: " + "; ".join(row_))
+    # compare: the same functions on the same draws give the parity's X
+    # (the same pulses and draws: equal but for the reductions' order)
+    cmp_, px = out["compare"], out["parity"]["X"]
+    for label in ("model", "SCORE"):
+        if not (abs(cmp_[label]["EF"] - px[label]["EF"]) <= 1e-6
+                and np.abs(cmp_[label]["mean"] - px[label]["mean"]).max() <= 1e-6):
+            raise AssertionError(f"compare {label} differs from the parity's X on the same draws")
+    est = out["estimate"]
+    if not (abs(est[0] - px["model"]["EF"]) <= 1e-6 and abs(est[1] - px["model"]["EF_se"]) <= 1e-6):
+        raise AssertionError(f"mc_fidelity_estimate {est} differs from the parity's X model")
+    for name, (err, tol) in checks.items():
+        print(f"  {name}: kernel vs plain {err:.2e} (tol {tol:.2e})")
+    for v, (d, e, traj, ef) in out["bloch"].items():
+        print(f"  bloch {v}: {traj.shape}, endpoint z mean {traj[:, -1, 2].mean():+.4f}, "
+              f"E[F] of the ensemble {ef:.4f}")
+    s100 = out["sweep length_100"]
+    s4 = out["sweep length_100_p4"]
+    print(f"  X(pi) E[F] {est[0]:.5f} ± {est[1]:.5f}; sweep at sigma 0.5 / 1.0 / 1.99: "
+          f"length_100 {s100[1][49]:.4f} / {s100[1][99]:.4f} / {s100[1][198]:.4f}, "
+          f"length_100_p4 {s4[1][49]:.4f} / {s4[1][99]:.4f} / {s4[1][198]:.4f}; grid F "
+          f"at the centre {out['grid'][2][500, 25]:.5f}")
+    shapes = {"grid": (1, L, 2, dd.numel()), "estimate": (1, L, 2, VIZ_MC),
+              "sweep": (1, L, 2, 199 * VIZ_MC),
+              "sweep-p4": (1, out["tables"]["length_100_p4"][0].shape[0], 4, 199 * VIZ_MC),
+              "score": (1, zp.shape[0], 2, 199 * VIZ_MC)}
+    return {"launches": launches, "t_path": t_path, "checks": checks, "worst_k": worst_k,
+            "worst_t": worst_t, "tables": out["tables"], "score_z": zp, "q_z": qz,
+            "bloch": out["bloch"],
+            "shapes": shapes}
+
+
+def viz_su4(dev) -> dict:
+    """[viz-su4]: the bundle figure's curves (B7) against the JAX package's
+    CPU values, and the two-qubit demo's grid and sweep of two_qubit_d2_kak
+    CZ and cz_drive2, each against its plain version."""
+    from universal_quantum_optimal_control_tpu_torch.analysis import (plots_su4,
+                                                                      two_qubit_bundle_figure)
+    from universal_quantum_optimal_control_tpu_torch.core.su4 import fidelity_su4_ri
+    from universal_quantum_optimal_control_tpu_torch.demo import app
+    from universal_quantum_optimal_control_tpu_torch.ops.propagate_su4 import \
+        propagate_su4_mc_plain
+    from universal_quantum_optimal_control_tpu_torch.workloads.finetune_two_qubit_gates import \
+        load_two_qubit_gate_bundle
+
+    bundle = two_qubit_bundle_figure._DEFAULT_BUNDLE
+    demos = (("two_qubit_d2_kak", "cz"), ("cz_drive2", "cz"))
+
+    def run():
+        curves = two_qubit_bundle_figure.bundle_curves(bundle, monte_carlo=VIZ4_MC, device=dev)
+        demo = {}
+        for v, g in demos:
+            r = app.two_qubit_robustness(v, g, monte_carlo=VIZ4_MC, device=dev)
+            r["grid"] = plots_su4.fidelity_grid_su4(r["pulses"], r["u_target"], r["system"],
+                                                    n_delta=61, device=dev)
+            demo[v] = r
+        return curves, demo
+
+    t0 = time.perf_counter()
+    (curves, demo), launches = run_path(run, ["B7"])
+    t_path = time.perf_counter() - t0
+    worst_k = 0.0
+    for g, (s, mean, se) in curves.items():
+        ref = JAX_BUNDLE_CURVES[g]
+        cells = []
+        for i in VIZ4_SIGMAS:
+            ef_j, se_j = ref[f"{s[i]:.2f}"]
+            k = abs(mean[i] - ef_j) / math.hypot(se[i], se_j)
+            worst_k = max(worst_k, k)
+            if not k <= VIZ_SE_K:
+                raise AssertionError(f"bundle {g} sigma {s[i]:.2f}: {mean[i]:.5f} vs JAX CPU "
+                                     f"{ef_j:.5f}, {k:.2f} combined SE")
+            cells.append(f"{s[i]:.2f}: {mean[i]:.4f}±{se[i]:.4f} (JAX CPU {ef_j:.4f})")
+        print(f"  bundle {g}: " + "; ".join(cells))
+    checks = {}
+    for v, r in demo.items():
+        p = torch.as_tensor(r["pulses"], dtype=torch.float32, device=dev)[None].contiguous()
+        tr, ti = plots_su4._as_packed(r["u_target"], dev)
+        sys_ = r["system"]
+        dg, F = r["grid"]
+        g1, g2 = (x.reshape(1, -1) for x in torch.meshgrid(
+            torch.as_tensor(dg, device=dev), torch.as_tensor(dg, device=dev), indexing="ij"))
+        ref = []
+        for dt in (torch.float32, torch.float64):
+            U = propagate_su4_mc_plain(p.to(dt), g1.to(dt), g2.to(dt),
+                                       torch.zeros_like(g1, dtype=dt), sys_)
+            ref.append(fidelity_su4_ri(U[0][0], U[1][0], tr.to(dt), ti.to(dt)))
+        checks[f"grid {v}"] = plain_rule(torch.as_tensor(F, device=dev).reshape(-1), *ref,
+                                         floor=SU4_PROD_TOL)
+        S = len(r["stds"])
+        n1, n2, ne = plots_su4._sweep_draws(torch.Generator(device=dev).manual_seed(0), S,
+                                            VIZ4_MC, 0.05)
+        st = torch.as_tensor(r["stds"], device=dev)[:, None]
+        U = propagate_su4_mc_plain(p, (n1 * st).reshape(1, -1), (n2 * st).reshape(1, -1),
+                                   ne.reshape(1, -1), sys_)
+        Fs = fidelity_su4_ri(U[0][0], U[1][0], tr, ti).reshape(S, -1)
+        err = max(float(np.abs(r["mean"] - Fs.mean(1).cpu().numpy()).max()),
+                  float(np.abs(r["se"] - (Fs.std(1, correction=0)
+                                          / math.sqrt(VIZ4_MC)).cpu().numpy()).max()))
+        checks[f"sweep {v}"] = (err, SU4_SWEEP_TOL)
+        print(f"  {r['label']} {tuple(p.shape[1:])}: E[F] at sigma 0.1 / 0.2 / 0.4 "
+              f"{r['mean'][4]:.4f} / {r['mean'][9]:.4f} / {r['mean'][19]:.4f}; grid F at the "
+              f"centre {F[30, 30]:.5f}")
+    for name, (err, tol) in checks.items():
+        print(f"  {name}: kernel vs plain {err:.2e} (tol {tol:.2e})")
+        if not err <= tol:
+            raise AssertionError(f"[viz-su4] {name}: kernel against plain {err:.3e} > {tol:.2e}")
+    return {"launches": launches, "t_path": t_path, "checks": checks, "worst_k": worst_k,
+            "demo": demo, "bundle_pulses": load_two_qubit_gate_bundle(bundle)[0],
+            "n_sigmas": len(next(iter(curves.values()))[0])}
+
+
 def main() -> int:
     t_total = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2307,7 +2632,27 @@ def main() -> int:
           f"f32 export served within {rq['exports']['f32']['err']:.1e} (tol {RUN_EXPORT_TOL:.0e}), "
           f"f16 and int8 equal to the numpy round trip; launches {rq['launches']}")
 
-    # 21. time each kernel at each path's shape: one row per (kernel, path),
+    # 21. viz — the single-qubit figures' numbers: counters to 0 inside
+    t0 = time.perf_counter()
+    zq = viz_su2(dev)
+    phase("viz", t0, f"length_100 at the demo's defaults (X(pi), M = {VIZ_MC}): grid, estimate, "
+          f"sweeps (199 sigma x {VIZ_MC}, P = 2 and 4), Bloch (12 samples, P = 2 and 4), 5 "
+          f"gates' parity curves and the compare, {zq['t_path']:.2f} s; kernel vs plain worst "
+          f"{max(e / t for e, t in zq['checks'].values()):.2f} of its tolerance; parity E[F] "
+          f"within {zq['worst_k']:.2f} combined SE of the JAX CPU values (gate {VIZ_SE_K}), "
+          f"model T within {zq['worst_t']:.4f}π (tol {VIZ_MODEL_T_TOL}), SCORE T exact; "
+          f"launches {zq['launches']}")
+
+    # 22. viz-su4 — the two-qubit figures' numbers: counters to 0 inside
+    t0 = time.perf_counter()
+    zq4 = viz_su4(dev)
+    phase("viz-su4", t0, f"bundle figure (5 gates x {zq4['n_sigmas']} sigma x {VIZ4_MC}) within "
+          f"{zq4['worst_k']:.2f} combined SE of the JAX CPU values (gate {VIZ_SE_K}); the demo's "
+          f"61² grid and 20-sigma sweep of two_qubit_d2_kak CZ and cz_drive2, kernel vs plain "
+          f"worst {max(e / t for e, t in zq4['checks'].values()):.2f} of its tolerance, "
+          f"{zq4['t_path']:.2f} s; launches {zq4['launches']}")
+
+    # 23. time each kernel at each path's shape: one row per (kernel, path),
     # its launches those of that path's run
     t0 = time.perf_counter()
     csrc = "universal_quantum_optimal_control_tpu_torch/ops/csrc/"
@@ -2335,7 +2680,8 @@ def main() -> int:
                 "grape-su4": gq["launches"], "polish-su4": pq["launches"],
                 "serve-su4-variants": vq["launches"], "serve-variants": sv["launches"],
                 "grape": g2["launches"], "finetune": f2["launches"],
-                "ceiling": f2["ceiling_launches"], "run": rq["launches"], **mq["launches"]}
+                "ceiling": f2["ceiling_launches"], "run": rq["launches"], **mq["launches"],
+                "viz": zq["launches"], "viz-su4": zq4["launches"]}
 
     lib2 = _build.load_library("su2")
     lib4, lib4b = _build.load_library("su4"), _build.load_library("su4_bwd")
@@ -2656,10 +3002,58 @@ def main() -> int:
     slice2_rows += su2_train_rows("run", rq["pulses"], rq["q"],
                                   torch.randn((200, 1000), generator=rgen, device=dev),
                                   0.05 * torch.randn((200, 1000), generator=rgen, device=dev))
+    # slice 4b: B3 at the single-qubit figures' shapes on their own inputs
+    # (the length_100 and length_100_p4 X(π) tables, the 1000 × 50 grid, the
+    # estimate's draws, the sweeps' 199 σ × 10 000 draws, the longest SCORE
+    # table, the Bloch ensemble), B7 at the bundle figure's and the two-qubit
+    # demo's (the grid of two_qubit_d2_kak CZ, the sweep of cz_drive2)
+    from universal_quantum_optimal_control_tpu_torch.analysis import plots as vplots
+    from universal_quantum_optimal_control_tpu_torch.core.errors import sample_ore_ple
+    vgen = torch.Generator(device=dev).manual_seed(2030)
+    pv, p4v = (zq["tables"][v][0][None].contiguous() for v in ("length_100", "length_100_p4"))
+    nd, ne = vplots._sweep_draws(vgen, 199, VIZ_MC, 0.05)
+    st = torch.arange(1, 200, device=dev, dtype=torch.float32)[:, None] * 0.01
+    sweep_d, sweep_e = (nd * st).reshape(1, -1).contiguous(), ne.reshape(1, -1).contiguous()
+    gd, ge = torch.meshgrid(torch.linspace(-3.0, 3.0, 1000, device=dev),
+                            torch.linspace(-0.15, 0.15, 50, device=dev), indexing="ij")
+    est_d, est_e = (t[None].contiguous() for t in sample_ore_ple(vgen, (VIZ_MC,), 1.0, 0.05))
+    bd, be, _, _ = zq["bloch"]["length_100_p4"]
+    viz_inputs = {"grid": (pv, gd.reshape(1, -1).contiguous(), ge.reshape(1, -1).contiguous()),
+                  "estimate": (pv, est_d, est_e), "sweep": (pv, sweep_d, sweep_e),
+                  "sweep-p4": (p4v, sweep_d, sweep_e),
+                  "score": (zq["score_z"][None].contiguous(), sweep_d, sweep_e),
+                  "bloch-p4": (p4v, bd[None].contiguous(), be[None].contiguous())}
+    viz_rows = []
+    for key, args in viz_inputs.items():
+        launches[f"viz ({key})"] = zq["launches"]
+        viz_rows.append(prop_row(f"viz ({key})", *args, 20))
+    bundle_p = torch.as_tensor(next(iter(zq4["bundle_pulses"].values())), dtype=torch.float32,
+                               device=dev)[None].contiguous()
+    n4 = [torch.randn((12, VIZ4_MC), generator=vgen, device=dev) for _ in range(3)]
+    st4 = torch.arange(1, 13, device=dev, dtype=torch.float32)[:, None] * 0.05
+    d4 = [(n * st4).reshape(1, -1).contiguous() for n in n4[:2]]
+    e4 = (0.05 * n4[2]).reshape(1, -1).contiguous()
+    launches["viz-su4 (bundle)"] = launches["viz-su4 (grid)"] = zq4["launches"]
+    launches["viz-su4 (sweep)"] = zq4["launches"]
+    viz_rows.append(su4_prop_row("viz-su4 (bundle)", (bundle_p, *d4, e4), sysd))
+    dk = zq4["demo"]["two_qubit_d2_kak"]
+    dkp = torch.as_tensor(dk["pulses"], dtype=torch.float32, device=dev)[None].contiguous()
+    g61 = torch.as_tensor(dk["grid"][0], device=dev)
+    g1, g2 = (x.reshape(1, -1).contiguous() for x in torch.meshgrid(g61, g61, indexing="ij"))
+    viz_rows.append(su4_prop_row("viz-su4 (grid)", (dkp, g1, g2, torch.zeros_like(g1)),
+                                 dk["system"]))
+    n20 = [torch.randn((20, VIZ4_MC), generator=vgen, device=dev) for _ in range(3)]
+    st20 = torch.arange(1, 21, device=dev, dtype=torch.float32)[:, None] * 0.02
+    d2p = zq4["demo"]["cz_drive2"]
+    viz_rows.append(su4_prop_row(
+        "viz-su4 (sweep)", (torch.as_tensor(d2p["pulses"], dtype=torch.float32,
+                                            device=dev)[None].contiguous(),
+                            *((n * st20).reshape(1, -1).contiguous() for n in n20[:2]),
+                            (0.05 * n20[2]).reshape(1, -1).contiguous()), d2p["system"]))
     kernels = [fid_row("serve", pulses, q_t, delta, eps, 20), b1_train, b2_train,
                prop_row("serve", p1, d1, e1, 20), prop_row("train", pt, dt_, et_, 50),
                b6_row, b7_row, b4_row, b5_row, b6_train, b8_row, b7_grape, b4_pol, b5_pol,
-               b6_pol, b6_var, b7_var] + slice2_rows
+               b6_pol, b6_var, b7_var] + slice2_rows + viz_rows
     for k in kernels:
         occ = k.get("occupancy")
         if occ and "chunks" in occ:

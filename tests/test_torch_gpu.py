@@ -27,6 +27,13 @@ process's B1 (value 2e-6, gradient 1e-5 of its largest entry); the
 ``xla_remat`` backend on CUDA tensors against ``xla`` (the plain path, no
 kernel launched).
 
+Slice 4b: the figures' sweep (``analysis/plots.py::fidelity_by_std``, every
+σ on B3's Monte-Carlo axis, one launch) on the SCORE Z(π/4) table
+(L = 2019, the longest row a path gives B3) against its plain version on
+the same draws, and the Bloch trajectories' endpoints against B3's product
+rotated onto ẑ at P = 2 and 4 (tolerance: 1e-5 or twice the plain f32
+version's own error against f64, whichever is larger).
+
 This file imports nothing of JAX, so it also runs where JAX is absent:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
@@ -749,3 +756,44 @@ def test_xla_remat_backend_on_cuda_tensors(card):
     assert tk.mean_fidelity_cuda.launches == tk.propagate_mc_cuda.launches == 0
     assert float((grads["xla_remat"][0] - grads["xla"][0]).abs().max()) <= 1e-6
     assert float((grads["xla_remat"][1] - grads["xla"][1]).abs().max()) <= 1e-5
+
+
+def test_figures_sweep_on_the_longest_score_table(card):
+    from universal_quantum_optimal_control_tpu_torch.analysis import plots
+    from universal_quantum_optimal_control_tpu_torch.analysis.score_pulses import \
+        build_score_pulses
+
+    table = build_score_pulses()["Z(pi/4)"]
+    assert table.shape == (2019, 2)
+    pulses = torch.as_tensor(table, device=card)
+    q_t = torch.nn.functional.normalize(torch.ones(4, device=card), dim=0)
+    tk.propagate_mc_cuda.launches = 0
+    stds, mean, se = plots.fidelity_by_std(table, q_t, stds=[0.1, 1.0, 1.9], monte_carlo=4000,
+                                           generator=torch.Generator(card).manual_seed(3),
+                                           device=card)
+    assert tk.propagate_mc_cuda.launches == 1
+    nd, ne = plots._sweep_draws(torch.Generator(card).manual_seed(3), 3, 4000, 0.05)
+    st = torch.as_tensor(stds, device=card)[:, None]
+    ref = {}
+    for dt in (torch.float32, torch.float64):
+        q = tk.propagate_mc_plain(pulses[None].to(dt), (nd * st).reshape(1, -1).to(dt),
+                                  ne.reshape(1, -1).to(dt))[0]
+        ref[dt] = quat_fidelity(q, q_t[None].to(dt)).reshape(3, -1).mean(1)
+    tol = max(TOL, 2 * float((ref[torch.float32].double() - ref[torch.float64]).abs().max()))
+    assert float((torch.as_tensor(mean, device=card) - ref[torch.float32]).abs().max()) <= tol
+    assert mean[0] > mean[2] and se[2] > 0
+
+
+@pytest.mark.parametrize("P", [2, 4])
+def test_bloch_endpoints_at_b3s_product(card, P):
+    from universal_quantum_optimal_control_tpu_torch.analysis import bloch
+
+    pulses, _, delta, eps = inputs(P, 12, card, B=1, L=100, seed=9)
+    traj = bloch.bloch_trajectories(pulses[0], delta[0], eps[0], device=card)
+    q = tk.propagate_mc_cuda(pulses, delta, eps)[0]
+    end = bloch.quat_rotation_matrix(q)[..., 2].cpu()
+    r0 = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float64, device=card)
+    end64 = bloch._trajectories(pulses[0].double(), delta[0].double(), eps[0].double(),
+                                r0)[:, -1].cpu()
+    tol = max(TOL, 2 * float((torch.as_tensor(traj[:, -1]).double() - end64).abs().max()))
+    assert float((torch.as_tensor(traj[:, -1]) - end).abs().max()) <= tol

@@ -1,13 +1,13 @@
-r"""Two-qubit robustness surfaces and sweeps, the numeric halves (port of
-``analysis/plots_su4.py``).
+r"""Two-qubit robustness surfaces and sweeps (port of ``analysis/plots_su4.py``).
 
 The two-qubit system has two off-resonance channels, so its robustness
 surface is F(δ₁, δ₂) at fixed ε (:func:`fidelity_grid_su4`) and its sweep
 E[F](σ_δ) draws both channels i.i.d. (:func:`fidelity_by_std_su4`).  Both
 propagate through kernel B7 (:func:`..ops.propagate_su4.propagate_su4_mc_cuda`)
 on CUDA, as one target with all samples on the Monte-Carlo axis, then take
-the fidelity in PyTorch.  The figure (``fidelity_contour_plot_su4``) waits
-for the plotting slice (``ROADMAP.md`` A.18).
+the fidelity in PyTorch.  The figure (:func:`fidelity_contour_plot_su4`)
+draws the grid with the single-qubit contour levels; it imports matplotlib
+when called.
 """
 
 from __future__ import annotations
@@ -21,8 +21,9 @@ import torch
 from ..core.su4 import TwoQubitSystem, fidelity_su4_ri
 from ..ops.propagate_su4 import propagate_su4_mc_cuda
 from ..utils.device import resolve_device
+from .plots import CONTOUR_LEVELS, LINE_LEVELS, _pyplot
 
-__all__ = ["fidelity_grid_su4", "fidelity_by_std_su4"]
+__all__ = ["fidelity_grid_su4", "fidelity_contour_plot_su4", "fidelity_by_std_su4"]
 
 
 def _as_packed(u_target, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -60,6 +61,27 @@ def fidelity_grid_su4(pulses, u_target, system: TwoQubitSystem = TwoQubitSystem(
     with torch.no_grad():
         F = _fidelities(p, tr, ti, dd1, dd2, torch.full_like(dd1, float(epsilon)), system)
     return dg.cpu().numpy(), F.reshape(n_delta, n_delta).cpu().numpy()
+
+
+def fidelity_contour_plot_su4(pulses, u_target, system: TwoQubitSystem = TwoQubitSystem(),
+                              save_path: Optional[str] = None, title: str = "",
+                              n_delta: int = 101, device=None):
+    """Filled F(δ₁, δ₂) contours at ε = 0 (:func:`fidelity_grid_su4`)."""
+    plt = _pyplot()
+
+    dg, F = fidelity_grid_su4(pulses, u_target, system, n_delta=n_delta, device=device)
+    fig, ax = plt.subplots(figsize=(6.5, 5.5))
+    cs = ax.contourf(dg, dg, F.T, levels=[0.0] + CONTOUR_LEVELS, cmap="viridis")
+    ax.contour(dg, dg, F.T, levels=LINE_LEVELS, colors="white", linewidths=0.8)
+    fig.colorbar(cs, ax=ax, label="fidelity")
+    ax.set_xlabel(r"$\delta_1$")
+    ax.set_ylabel(r"$\delta_2$")
+    ax.set_title(f"{title}  two-qubit fidelity surface")
+    fig.tight_layout()
+    if save_path is not None:
+        fig.savefig(save_path, dpi=120)
+        plt.close(fig)
+    return fig
 
 
 def _sweep_draws(generator: torch.Generator, S: int, monte_carlo: int,
