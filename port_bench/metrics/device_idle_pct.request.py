@@ -1,0 +1,7 @@
+"""The device's idle share while requests run back to back."""
+
+from port_bench import readers
+
+
+def read(ctx):
+    return readers.idle_pct(ctx, "request")
