@@ -34,6 +34,12 @@ the same draws, and the Bloch trajectories' endpoints against B3's product
 rotated onto ẑ at P = 2 and 4 (tolerance: 1e-5 or twice the plain f32
 version's own error against f64, whichever is larger).
 
+The program's spans (``utils/tracing.py``) on the kernels' path: in a
+training step under the profiler, B1 + B3/B2 (single qubit) and B4 + B5
+(two qubits), ``mc.mean_fidelity.backward``, opened on autograd's device
+thread, nests under ``trainer.backward``, and in the trace each program
+kernel's launch lies inside the span that launched it.
+
 This file imports nothing of JAX, so it also runs where JAX is absent:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
@@ -797,3 +803,86 @@ def test_bloch_endpoints_at_b3s_product(card, P):
                                 r0)[:, -1].cpu()
     tol = max(TOL, 2 * float((torch.as_tensor(traj[:, -1]).double() - end64).abs().max()))
     assert float((torch.as_tensor(traj[:, -1]) - end).abs().max()) <= tol
+
+
+def _tiny_step(family, dev):
+    """A tiny training step through the kernels (B1 + B3/B2, or B4 + B5)."""
+    from universal_quantum_optimal_control_tpu_torch.models import (
+        TwoQubitQOCTransformer, UniversalQOCTransformer, normalize_pulse_space)
+    from universal_quantum_optimal_control_tpu_torch.training import (
+        CurriculumBand, TrainConfig, Trainer)
+    from universal_quantum_optimal_control_tpu_torch.training.systems import SU4System
+
+    B, M = 4, 256
+    cfg = TrainConfig(monte_carlo=M, batch_size=B, backend="pallas")
+    g = torch.Generator(device=dev).manual_seed(0)
+    if family == "su2":
+        model = UniversalQOCTransformer(max_pulses=8, d_model=32, n_layers=2, n_heads=4,
+                                        dtype=torch.float32, device=dev)
+        tr = Trainer(model, cfg, device=dev)
+        x = torch.cat([torch.nn.functional.normalize(torch.randn((B, 3), generator=g,
+                                                                 device=dev), dim=-1),
+                       6.0 * torch.rand((B, 1), generator=g, device=dev)], dim=-1)
+        target = torch.nn.functional.normalize(torch.randn((B, 4), generator=g, device=dev),
+                                               dim=-1)
+    else:
+        space = (("phi1", (-3.15, 3.15)), ("phi2", (-3.15, 3.15)), ("omega", (0.05, 1.0)),
+                 ("tau", (0.1, 0.5)))
+        model = TwoQubitQOCTransformer(pulse_space=normalize_pulse_space(space), max_pulses=4,
+                                       d_model=16, n_layers=1, n_heads=2, kak_tokens=True,
+                                       dtype=torch.float32, device=dev)
+        tr = Trainer(model, cfg, system=SU4System(drive2=True, backend="pallas"), device=dev)
+        x = torch.randn((B, 9, 8), generator=g, device=dev)
+        _, tr_, ti, *_ = su4_inputs(4, 1, dev, B=B)
+        target = torch.stack([tr_, ti], dim=1)
+    return lambda: tr.train_step(x, target, tr.sample_errors(B, CurriculumBand(0.3)),
+                                 dropout=True)
+
+
+@pytest.mark.parametrize("family,forward,backward", [
+    ("su2", ("mean_fid_kernel",), ("propagate_mc_kernel", "propagate_mc_vjp_kernel")),
+    ("su4", ("mean_fid_su4_kernel",), ("su4_vjp_kernel",))])
+def test_spans_on_the_kernels_path(card, tmp_path, family, forward, backward):
+    import json
+
+    from universal_quantum_optimal_control_tpu_torch.utils import tracing
+
+    step = _tiny_step(family, card)
+    step()                                   # builds the kernels
+    torch.cuda.synchronize()
+    tracing.clear()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    spans = list(tracing.recorded())
+    tracing.clear()
+    names = [s.name for s in spans]
+    assert names.count("trainer.step") == 1 and names.count("mc.mean_fidelity.backward") == 1
+    kb = spans[names.index("mc.mean_fidelity.backward")]
+    parent = spans[kb.parent]
+    assert parent.name == "trainer.backward" and kb.unit == parent.unit == 0
+    assert parent.start_ns <= kb.start_ns <= kb.end_ns <= parent.end_ns
+
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    span_at = {e["name"]: (e["ts"], e["ts"] + e["dur"], e["tid"]) for e in events
+               if e.get("cat") == "user_annotation" and e["name"] in names}
+    # autograd runs a CUDA graph's backward on its own device thread
+    assert span_at["mc.mean_fidelity.backward"][2] != span_at["trainer.step"][2]
+    launch = {e["args"]["correlation"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in
+              e.get("args", {})}
+    found = {k: 0 for k in forward + backward}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for k in found:
+            if k + "<" in e["name"] or k + "(" in e["name"]:
+                owner = "mc.mean_fidelity" if k in forward else "mc.mean_fidelity.backward"
+                a, b, _ = span_at[owner]
+                la, lb = launch[e["args"]["correlation"]]
+                assert a <= la <= lb <= b, (k, owner)
+                found[k] += 1
+    assert all(found.values()), found

@@ -27,6 +27,7 @@ from ..core import su2
 from ..core.errors import sample_ore_ple
 from ..ops.propagate_su2 import propagate_mc_cuda
 from ..utils.device import resolve_device
+from ..utils.tracing import span
 from .fits import piecewise_linear_eval, segmented_linear_fit
 
 __all__ = [
@@ -89,6 +90,7 @@ def _mc_stats(pulses: torch.Tensor, q_target: torch.Tensor,
     return _mean_se(_fidelities(pulses, q_target, delta, eps))
 
 
+@span("plots.mc_fidelity_estimate")
 def mc_fidelity_estimate(pulses, u_target, delta_std: float = 1.0,
                          epsilon_std: float = 0.05, monte_carlo: int = 10000,
                          generator: Optional[torch.Generator] = None,
@@ -117,6 +119,7 @@ def _grid_fid(pulses: torch.Tensor, q_target: torch.Tensor, delta_grid: torch.Te
     return _fidelities(pulses, q_target, dd, ee).reshape(dd.shape)
 
 
+@span("plots.fidelity_grid")
 def fidelity_grid(pulses, u_target,
                   delta_range: Tuple[float, float] = (-3.0, 3.0),
                   eps_range: Tuple[float, float] = (-0.15, 0.15),
@@ -178,6 +181,7 @@ def _sweep_draws(generator: torch.Generator, S: int, monte_carlo: int,
     return nd, ne
 
 
+@span("plots.fidelity_by_std")
 def fidelity_by_std(pulses, u_target, stds: Optional[Sequence[float]] = None,
                     epsilon_std: float = 0.05, monte_carlo: int = 10000,
                     generator: Optional[torch.Generator] = None, device=None):

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
+from ..utils.tracing import span
 from .score_embedding import sinusoidal_positional_encoding
 from .universal_transformer import (EncoderBlock, _linear, _pulse_space_json,
                                     init_like_flax, normalize_pulse_space, wrap_angle)
@@ -142,6 +143,7 @@ class TwoQubitQOCTransformer(nn.Module):
         """Re-draw every weight from Flax's defaults (:func:`.universal_transformer.init_like_flax`)."""
         init_like_flax(self, generator)
 
+    @span("model.forward")
     def forward(self, packed_target: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``(B, 2, 4, 4)`` packed targets (or, with ``kak_tokens``, the

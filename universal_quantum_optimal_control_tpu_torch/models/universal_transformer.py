@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.device import resolve_device
+from ..utils.tracing import span
 from .score_embedding import score_features, sinusoidal_positional_encoding
 
 __all__ = ["UniversalQOCTransformer", "EncoderBlock", "RowDraws", "init_like_flax",
@@ -231,6 +232,7 @@ class UniversalQOCTransformer(nn.Module):
         """Re-draw every weight from Flax's defaults (:func:`init_like_flax`)."""
         init_like_flax(self, generator)
 
+    @span("model.forward")
     def forward(self, rotation_vector: torch.Tensor,
                 base_pulse: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -33,6 +33,7 @@ from torch.autograd.function import once_differentiable
 
 from ..core.propagate import propagate_mc
 from ..core.su2 import quat_fidelity
+from ..utils.tracing import span
 from ._build import load_library, raise_on
 
 __all__ = [
@@ -235,6 +236,7 @@ class _MeanFidelity(torch.autograd.Function):
         return _launch_mean_fidelity(pulses, q_target, delta, eps)
 
     @staticmethod
+    @span("mc.mean_fidelity.backward")
     @once_differentiable
     def backward(ctx, gbar):
         pulses, q_target, delta, eps = ctx.saved_tensors

@@ -49,6 +49,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..core.su4 import TwoQubitSystem, fidelity_su4_ri, propagate_su4_mc, split_pulses
+from ..utils.tracing import span
 from ._build import load_library, raise_on
 from .propagate_su2 import _MAX_TARGETS, _route
 
@@ -300,6 +301,7 @@ class _MeanFidelitySU4(torch.autograd.Function):
         return F
 
     @staticmethod
+    @span("mc.mean_fidelity.backward")
     @once_differentiable
     def backward(ctx, gbar):
         pulses, target_re, target_im, delta1, delta2, epsilon, prod = ctx.saved_tensors

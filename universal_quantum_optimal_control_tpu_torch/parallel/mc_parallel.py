@@ -22,11 +22,13 @@ import torch
 from ..core.propagate import propagate_mc
 from ..core.su2 import quat_fidelity
 from ..ops.propagate_su2 import mean_fidelity_cuda, mean_fidelity_plain
+from ..utils.tracing import span
 from .mesh import Mesh
 
 __all__ = ["make_mean_fidelity", "mean_fidelity_local"]
 
 
+@span("mc.mean_fidelity")
 def mean_fidelity_local(pulses: torch.Tensor, q_target: torch.Tensor,
                         delta: torch.Tensor, eps: torch.Tensor,
                         backend: str = "xla") -> torch.Tensor:

@@ -19,6 +19,7 @@ from ..core.errors import sample_ore_ple
 from ..ops.propagate_su4 import mean_fidelity_su4_cuda, mean_fidelity_su4_plain
 from ..parallel.mc_parallel import mean_fidelity_local
 from ..parallel.mesh import MC_AXIS, Mesh
+from ..utils.tracing import span
 
 __all__ = ["SU2System", "SU4System", "make_objective", "make_per_target_objective"]
 
@@ -113,6 +114,7 @@ class SU4System:
         delta2 = draw() * delta_std
         return delta1, delta2, draw() * epsilon_std
 
+    @span("mc.mean_fidelity")
     def local_mean_fidelity(self, pulses, target, errors):
         delta1, delta2, eps = errors
         args = (pulses, target[:, 0].contiguous(), target[:, 1].contiguous(),

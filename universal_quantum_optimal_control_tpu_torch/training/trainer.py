@@ -63,6 +63,7 @@ from ..core import objectives
 from ..models.universal_transformer import RowDraws
 from ..parallel.mesh import DATA_AXIS, MC_AXIS, Mesh, shard_spec
 from ..utils.device import resolve_device
+from ..utils.tracing import span
 from .checkpoint import save_checkpoint
 from .metrics import MetricsLogger
 from .resume import TrainState, latest_step, restore_train_state, save_train_state
@@ -96,7 +97,8 @@ def default_curriculum() -> List[CurriculumBand]:
 class TrainConfig:
     """The JAX ``TrainConfig``, field for field and default for default
     (``backend`` "xla" is the eager plain path, "pallas" the CUDA kernels;
-    ``profile_dir`` traces with ``torch.profiler``; ``debug_nans`` turns on
+    ``profile_dir`` traces with ``torch.profiler``, the program's spans
+    (:mod:`..utils.tracing`) beside the kernels; ``debug_nans`` turns on
     ``torch.autograd.set_detect_anomaly``)."""
 
     monte_carlo: int = 1000
@@ -231,6 +233,7 @@ class Trainer:
         for g in grads:
             g.copy_(torch.where(norm < c, g, (g / norm) * c))
 
+    @span("trainer.optimizer")
     def apply_gradients(self) -> None:
         """Clip the gradients held in ``.grad``, then one Adam step at the
         schedule's current learning rate."""
@@ -314,13 +317,15 @@ class Trainer:
         mean_fid = self._mean_fid(pulses, q_target, errors)
         return self._loss_of_mean_fid(mean_fid), mean_fid
 
+    @span("trainer.step")
     def train_step(self, rv: torch.Tensor, q_target: torch.Tensor, errors,
                    dropout: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """One optimizer step on explicit disorder; returns the step's
         ``(loss, mean E[F])`` as device tensors (no host sync)."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, mean_fid = self.objective(rv, q_target, errors, dropout)
-        loss.backward()
+        with span("trainer.backward", backward=True):
+            loss.backward()
         if self.mesh is not None:
             # each rank's gradient is its block's: their sum over the ranks,
             # scaled, is the unsharded one
