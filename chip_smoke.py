@@ -661,13 +661,26 @@ def check_su4_train(gen, dev) -> str:
             f"{worst_85:.3e} (tol {SU4_B8_B5_TOL:.0e})")
 
 
-def step_profile(step, n: int, keys=(), per_call: int = 1, profile: bool = True) -> dict:
+def device_events(prof) -> list:
+    """A profile's device operations, kernels and copies: not the annotation
+    ranges the profiler also files under the device (``Optimizer.step#…``,
+    and the program's spans, such as ``trainer.graph_replay`` around a
+    replayed step's kernels)."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "#" not in e.key
+            and not e.is_user_annotation]
+
+
+def step_profile(step, n: int, keys=(), per_call: int = 1, profile: bool = True,
+                 warmup: int = 1) -> dict:
     """ms per step on the host clock around ``n`` synchronized calls of
-    ``step()`` (after one warm-up), each ``per_call`` steps, then (unless
+    ``step()`` (after ``warmup`` calls: 2 for a trainer's step, whose
+    second call captures its CUDA graph), each ``per_call`` steps, then (unless
     ``profile`` is False: an eager plain step's ~10⁵ records take the
     profiler minutes) a profile of 3 calls: the device's kernel time per
     step and that of the kernels whose names contain one of ``keys``."""
-    step()
+    for _ in range(warmup):
+        step()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     for _ in range(n):
@@ -681,8 +694,7 @@ def step_profile(step, n: int, keys=(), per_call: int = 1, profile: bool = True)
         for _ in range(3):
             step()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and "#" not in e.key]
+    events = device_events(prof)
     dev_ms = sum(e.self_device_time_total for e in events) / (3e3 * per_call)
     ours_ms = sum(e.self_device_time_total for e in events
                   if any(k in e.key for k in keys)) / (3e3 * per_call)
@@ -836,11 +848,12 @@ def train_su4(ckpt, kw4, dev) -> dict:
                              f"{tol:.2e}")
 
     # ms per train step (fresh draws and dropout, as in the CLI), host clock
-    # around synchronized steps
+    # around synchronized steps after two (the second captures the step)
     step_ms = {}
     for b, n in (("pallas", 10), ("xla", 2)):
         tr = trainers[b]
-        tr.train_step(x, targets, tr.sample_errors(B, band), dropout=True)
+        for _ in range(2):
+            tr.train_step(x, targets, tr.sample_errors(B, band), dropout=True)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         for _ in range(n):
@@ -853,8 +866,7 @@ def train_su4(ckpt, kw4, dev) -> dict:
         for _ in range(3):
             tr.train_step(x, targets, tr.sample_errors(B, band), dropout=True)
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and "#" not in e.key]
+    events = device_events(prof)
     dev_ms = sum(e.self_device_time_total for e in events) / 3e3
     ours_ms = sum(e.self_device_time_total for e in events
                   if any(k in e.key for k in ("mean_fid_su4_kernel", "su4_vjp_kernel",
@@ -1217,7 +1229,7 @@ def grape_su2(dev) -> dict:
     for b, n in (("pallas", 20), ("xla", 2)):
         tr = trainers[b]
         step[b] = step_profile(lambda: tr.train_step(rv, qt, tr.sample_errors(B, band)), n,
-                               SU2_KERNEL_KEYS, profile=b == "pallas")
+                               SU2_KERNEL_KEYS, profile=b == "pallas", warmup=2)
     sp = step["pallas"]
     print(f"  train step: pallas {sp['ms']:.2f} ms (kernels {sp['device_ms']:.3f} ms, "
           f"{100 * sp['device_ms'] / sp['ms']:.1f} % busy; B1/B2/B3 {sp['kernel_ms']:.3f} ms), "
@@ -1366,8 +1378,7 @@ def dcrab_su2(dev) -> dict:
     with torch.profiler.profile(activities=acts) as prof:
         dcrab.run_adam(card, cfg.dt, 2, 0.02)
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and "#" not in e.key]
+    events = device_events(prof)
     kernels_per_step = sum(e.count for e in events) / 2
     dev_ms = sum(e.self_device_time_total for e in events) / 2e3
     print(f"  grad CLI: {DCRAB_STEPS} Adam steps, N = 2000, 600 time steps, 200 samples, 5 "
@@ -2398,8 +2409,7 @@ def main() -> int:
         for _ in range(5):
             tr.train_step(rv_t, qt_t, tr.sample_errors(200, band), dropout=True)
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and "#" not in e.key]
+    events = device_events(prof)
     dev_ms = sum(e.self_device_time_total for e in events) / 5e3
     ours_ms = sum(e.self_device_time_total for e in events
                   if any(k in e.key for k in ("mean_fid_kernel", "propagate_mc",

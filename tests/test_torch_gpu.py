@@ -805,21 +805,24 @@ def test_bloch_endpoints_at_b3s_product(card, P):
     assert float((torch.as_tensor(traj[:, -1]) - end).abs().max()) <= tol
 
 
-def _tiny_step(family, dev):
-    """A tiny training step through the kernels (B1 + B3/B2, or B4 + B5)."""
+def _tiny_trainer(family, dev, backend="pallas", **cfg):
+    """A small model's trainer, its inputs and targets, through the kernels
+    (B1 + B3/B2, or B4 + B5; ``backend`` "xla" or "xla_remat": the plain
+    versions), with weights drawn from a fixed seed: ``"su2"`` the
+    single-qubit model, ``"su4"`` the two-qubit one on KAK tokens,
+    ``"su4_features"`` on the target's rows and its Makhlin invariants."""
     from universal_quantum_optimal_control_tpu_torch.models import (
         TwoQubitQOCTransformer, UniversalQOCTransformer, normalize_pulse_space)
-    from universal_quantum_optimal_control_tpu_torch.training import (
-        CurriculumBand, TrainConfig, Trainer)
+    from universal_quantum_optimal_control_tpu_torch.training import TrainConfig, Trainer
     from universal_quantum_optimal_control_tpu_torch.training.systems import SU4System
 
     B, M = 4, 256
-    cfg = TrainConfig(monte_carlo=M, batch_size=B, backend="pallas")
+    config = TrainConfig(monte_carlo=M, batch_size=B, backend=backend, **cfg)
     g = torch.Generator(device=dev).manual_seed(0)
     if family == "su2":
         model = UniversalQOCTransformer(max_pulses=8, d_model=32, n_layers=2, n_heads=4,
                                         dtype=torch.float32, device=dev)
-        tr = Trainer(model, cfg, device=dev)
+        system = None
         x = torch.cat([torch.nn.functional.normalize(torch.randn((B, 3), generator=g,
                                                                  device=dev), dim=-1),
                        6.0 * torch.rand((B, 1), generator=g, device=dev)], dim=-1)
@@ -828,14 +831,25 @@ def _tiny_step(family, dev):
     else:
         space = (("phi1", (-3.15, 3.15)), ("phi2", (-3.15, 3.15)), ("omega", (0.05, 1.0)),
                  ("tau", (0.1, 0.5)))
+        tokens = family == "su4"
         model = TwoQubitQOCTransformer(pulse_space=normalize_pulse_space(space), max_pulses=4,
-                                       d_model=16, n_layers=1, n_heads=2, kak_tokens=True,
-                                       dtype=torch.float32, device=dev)
-        tr = Trainer(model, cfg, system=SU4System(drive2=True, backend="pallas"), device=dev)
-        x = torch.randn((B, 9, 8), generator=g, device=dev)
+                                       d_model=16, n_layers=1, n_heads=2, kak_tokens=tokens,
+                                       kak_features=not tokens, dtype=torch.float32,
+                                       device=dev)
+        system = SU4System(drive2=True, backend=backend)
         _, tr_, ti, *_ = su4_inputs(4, 1, dev, B=B)
         target = torch.stack([tr_, ti], dim=1)
-    return lambda: tr.train_step(x, target, tr.sample_errors(B, CurriculumBand(0.3)),
+        x = torch.randn((B, 9, 8), generator=g, device=dev) if tokens else target
+    model.init_like_flax(torch.Generator(device=dev).manual_seed(1))
+    return Trainer(model, config, system=system, device=dev), x, target
+
+
+def _tiny_step(family, dev):
+    """A tiny training step through the kernels (:func:`_tiny_trainer`)."""
+    from universal_quantum_optimal_control_tpu_torch.training import CurriculumBand
+
+    tr, x, target = _tiny_trainer(family, dev)
+    return lambda: tr.train_step(x, target, tr.sample_errors(x.shape[0], CurriculumBand(0.3)),
                                  dropout=True)
 
 
@@ -847,8 +861,10 @@ def test_spans_on_the_kernels_path(card, tmp_path, family, forward, backward):
 
     from universal_quantum_optimal_control_tpu_torch.utils import tracing
 
+    _tiny_step(family, card)()               # builds the kernels
+    # a new trainer: its first step runs eagerly, span by span (the steps
+    # after it replay a CUDA graph, inside which no span opens)
     step = _tiny_step(family, card)
-    step()                                   # builds the kernels
     torch.cuda.synchronize()
     tracing.clear()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -886,3 +902,148 @@ def test_spans_on_the_kernels_path(card, tmp_path, family, forward, backward):
                 assert a <= la <= lb <= b, (k, owner)
                 found[k] += 1
     assert all(found.values()), found
+
+
+def _four_steps(tr, x, target, graphed):
+    """Four steps with dropout on the trainer's own draws: ``train_step``,
+    or by hand (``objective``, ``backward``, ``apply_gradients``)."""
+    from universal_quantum_optimal_control_tpu_torch.training import CurriculumBand
+
+    out = []
+    for _ in range(4):
+        errors = tr.sample_errors(x.shape[0], CurriculumBand(0.3))
+        if graphed:
+            out.append(tr.train_step(x, target, errors, dropout=True))
+        else:
+            tr.optimizer.zero_grad(set_to_none=True)
+            loss, fid = tr.objective(x, target, errors, dropout=True)
+            loss.backward()
+            tr.apply_gradients()
+            out.append((loss.detach(), fid.detach()))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("family,backend", [
+    ("su2", "pallas"), ("su4", "pallas"), ("su4_features", "pallas"),
+    ("su2", "xla_remat"), ("su4", "xla")])
+def test_graphed_steps_are_the_eager_composition(card, family, backend):
+    """Four steps through the CUDA graph (an eager warm-up, a capture, two
+    replays) against four composed by hand with the same capturable Adam,
+    from the same weights and generator seed: losses and E[F] within 1e-6
+    relative, parameters within rtol 1e-5, the generator in the same state
+    (the graph's dropout masks continue its stream), the kernel wrappers'
+    launch counters moved alike (a replay counts the launches its graph
+    holds); each returned loss a tensor of its own.  After
+    ``reset_optimizer`` the next step runs eagerly again and the one after
+    it captures anew.  The kernels' path, the KAK-feature model (its magic
+    basis cached on the card), and the plain paths with checkpointed
+    segments (SU(2)) and Pauli tables (SU(4))."""
+    from universal_quantum_optimal_control_tpu_torch.ops import COUNTED
+
+    def launches(run):
+        before = [f.launches for f in COUNTED]
+        out = run()
+        return out, [f.launches - n for f, n in zip(COUNTED, before)]
+
+    tr, x, target = _tiny_trainer(family, card, backend)
+    got, got_launches = launches(lambda: _four_steps(tr, x, target, graphed=True))
+    ref, *_ = _tiny_trainer(family, card, backend)
+    want, want_launches = launches(lambda: _four_steps(ref, x, target, graphed=False))
+    assert got_launches == want_launches
+    assert (sum(want_launches) > 0) == (backend == "pallas")
+    assert (tr.graph_captures, tr.graph_replays) == (1, 2)
+    assert (ref.graph_captures, ref.graph_replays) == (0, 0)
+    assert all(torch.is_tensor(g["lr"]) and g["capturable"] and g["fused"]
+               for g in tr.optimizer.param_groups)
+    for (loss, fid), (loss0, fid0) in zip(got, want):
+        torch.testing.assert_close(loss, loss0, rtol=1e-6, atol=0)
+        torch.testing.assert_close(fid, fid0, rtol=1e-6, atol=0)
+    for (name, p), p0 in zip(tr.model.named_parameters(), ref.model.parameters()):
+        torch.testing.assert_close(p, p0, rtol=1e-5, atol=0, msg=name)
+    assert torch.equal(tr.generator.get_state(), ref.generator.get_state())
+    assert len({loss.data_ptr() for loss, _ in got}) == 4
+    assert len({float(loss) for loss, _ in got}) == 4
+
+    tr.reset_optimizer()
+    more = _four_steps(tr, x, target, graphed=True)
+    assert (tr.graph_captures, tr.graph_replays) == (2, 4)
+    assert all(bool(torch.isfinite(loss)) for loss, _ in more)
+
+
+def test_no_graph_under_anomaly_mode(card):
+    """``debug_nans`` (anomaly mode) keeps the step as it was: no capture,
+    no replay, PyTorch's default Adam with a float learning rate, and
+    ``train_step`` gives what ``objective``, ``backward`` and
+    ``apply_gradients`` by hand give from the same weights and seed, bit
+    for bit."""
+    tr, x, target = _tiny_trainer("su2", card, debug_nans=True)
+    got = _four_steps(tr, x, target, graphed=True)
+    assert (tr.graph_captures, tr.graph_replays) == (0, 0)
+    assert all(isinstance(g["lr"], float) and not g["capturable"] and not g["fused"]
+               for g in tr.optimizer.param_groups)
+    ref, *_ = _tiny_trainer("su2", card, debug_nans=True)
+    want = _four_steps(ref, x, target, graphed=False)
+    for (loss, fid), (loss0, fid0) in zip(got, want):
+        assert torch.equal(loss, loss0) and torch.equal(fid, fid0)
+    for p, p0 in zip(tr.model.parameters(), ref.model.parameters()):
+        assert torch.equal(p, p0)
+    assert torch.equal(tr.generator.get_state(), ref.generator.get_state())
+
+
+def test_optimizer_state_resumes_across_devices(card):
+    """A state saved on the CPU resumes on the card and trains past the
+    capture (fused, capturable Adam, its step counters on the card), and
+    the card's state resumes on the CPU (PyTorch's default Adam, its
+    counters on the host): each continues the moments it was given."""
+    from universal_quantum_optimal_control_tpu_torch.training import CurriculumBand
+
+    band = CurriculumBand(0.3)
+    cpu, x, target = _tiny_trainer("su2", "cpu")
+    for _ in range(2):
+        cpu.train_step(x, target, cpu.sample_errors(x.shape[0], band))
+    tr, *_ = _tiny_trainer("su2", card)
+    tr.model.load_state_dict(cpu.model.state_dict())
+    tr.load_optimizer_state(cpu.optimizer_state())
+    assert tr.step_count == 2
+    for group in tr.optimizer.param_groups:
+        assert group["lr"].is_cuda and group["capturable"] and group["fused"]
+    for p, p0 in zip(tr.model.parameters(), cpu.model.parameters()):
+        st, st0 = tr.optimizer.state[p], cpu.optimizer.state[p0]
+        assert st["step"].device == p.device and float(st["step"]) == 2.0
+        assert torch.equal(st["exp_avg"].cpu(), st0["exp_avg"])
+    out = _four_steps(tr, x.to(card), target.to(card), graphed=True)
+    assert (tr.graph_captures, tr.graph_replays, tr.step_count) == (1, 2, 6)
+    assert all(bool(torch.isfinite(loss)) for loss, _ in out)
+
+    back, *_ = _tiny_trainer("su2", "cpu")
+    back.model.load_state_dict({k: v.cpu() for k, v in tr.model.state_dict().items()})
+    back.load_optimizer_state(tr.optimizer_state())
+    for group in back.optimizer.param_groups:
+        assert isinstance(group["lr"], float) and not group["capturable"]
+    for p, p0 in zip(back.model.parameters(), tr.model.parameters()):
+        st, st0 = back.optimizer.state[p], tr.optimizer.state[p0]
+        assert st["step"].device.type == "cpu" and float(st["step"]) == 6.0
+        assert torch.equal(st["exp_avg_sq"], st0["exp_avg_sq"].cpu())
+    loss, _ = back.train_step(x, target, back.sample_errors(x.shape[0], band))
+    assert bool(torch.isfinite(loss)) and back.step_count == 7
+
+
+def test_capture_while_an_eager_graph_through_the_model_is_alive(card):
+    """An eager backward through the model on the default stream whose
+    autograd graph is still alive (its loss held) does not stop the
+    capture: the steps give what a fresh trainer's give."""
+    from universal_quantum_optimal_control_tpu_torch.training import CurriculumBand
+
+    tr, x, target = _tiny_trainer("su2", card)
+    other, *_ = _tiny_trainer("su2", card)
+    held, _ = tr.objective(x, target, other.sample_errors(x.shape[0], CurriculumBand(0.3)))
+    held.backward()
+    got = _four_steps(tr, x, target, graphed=True)
+    fresh, *_ = _tiny_trainer("su2", card)
+    want = _four_steps(fresh, x, target, graphed=True)
+    assert (tr.graph_captures, tr.graph_replays) == (1, 2)
+    for (loss, fid), (loss0, fid0) in zip(got, want):
+        torch.testing.assert_close(loss, loss0, rtol=1e-6, atol=0)
+        torch.testing.assert_close(fid, fid0, rtol=1e-6, atol=0)
+    assert held.grad_fn is not None

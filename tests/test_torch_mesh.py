@@ -321,6 +321,16 @@ def test_sharded_trainer_with_dropout_keeps_the_unsharded_draws(trainer_runs):
             assert torch.equal(res["dropout"]["params"][k], v), k
 
 
+@pytest.mark.parametrize("case", ["plain", "cvar", "dropout"])
+def test_sharded_trainer_steps_eagerly(trainer_runs, case):
+    """A mesh's step is never a CUDA graph (gloo's all-reduce cannot be
+    captured), nor is a step on the CPU: both counters stay 0 and Adam is
+    not capturable, on every rank and in the one-process run."""
+    one, ranks = trainer_runs
+    for res in [one, *ranks]:
+        assert res[case]["graphs"] == (0, 0, [False])
+
+
 # ---------------------------------------------------------------------------
 # the training CLI's --mesh, 2 × 2 gloo ranks
 # ---------------------------------------------------------------------------

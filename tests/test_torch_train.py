@@ -13,6 +13,7 @@ are held to 1e-6 relative against the uninterrupted fused run: the same
 arithmetic in the same order.
 """
 
+import copy
 import json
 import math
 import shutil
@@ -145,6 +146,86 @@ def test_dropout_comes_from_the_trainer_generator():
     assert torch.equal(a, b) and not torch.equal(a, c)
     model.eval()
     assert torch.equal(model(rv), model(rv, generator=torch.Generator().manual_seed(3)))
+
+
+@pytest.mark.parametrize("debug_nans", [False, True])
+def test_cpu_step_is_the_eager_composition(debug_nans):
+    """On the CPU the step is never a CUDA graph: both counters stay 0,
+    Adam keeps a float learning rate and is not capturable (also after a
+    reset and a load), and ``train_step`` gives the losses, the parameters
+    and the generator state of ``objective``, ``backward`` and
+    ``apply_gradients`` run by hand from the same weights and seed, bit for
+    bit, on the cosine schedule."""
+    cfg = TrainConfig(monte_carlo=32, batch_size=8, learning_rate=1e-3, seed=3,
+                      lr_schedule="cosine", lr_schedule_steps=40, debug_nans=debug_nans)
+    rv, qt = tdata.build_su2_dataset(torch.Generator().manual_seed(1), 16, device="cpu")
+    rv, qt = rv[:8], qt[:8]
+    runs = []
+    for by_hand in (False, True):
+        model = UniversalQOCTransformer(**TINY, dtype=torch.float32, device="cpu")
+        model.init_like_flax(torch.Generator().manual_seed(0))
+        tr = Trainer(model, cfg, device="cpu")
+        losses = []
+        for _ in range(3):
+            errors = tr.sample_errors(8, CurriculumBand(0.7))
+            if by_hand:
+                tr.optimizer.zero_grad(set_to_none=True)
+                loss, fid = tr.objective(rv, qt, errors, dropout=True)
+                loss.backward()
+                tr.apply_gradients()
+            else:
+                loss, fid = tr.train_step(rv, qt, errors, dropout=True)
+            losses.append((float(loss.detach()), float(fid.detach())))
+        runs.append((losses, model.state_dict(), tr.generator.get_state(), tr))
+    (losses, params, gen, tr), (want_losses, want_params, want_gen, _) = runs
+    assert losses == want_losses and torch.equal(gen, want_gen)
+    for k, v in want_params.items():
+        assert torch.equal(params[k], v), k
+    assert (tr.graph_captures, tr.graph_replays, tr.step_count) == (0, 0, 3)
+    for reload in (lambda: None, tr.reset_optimizer,
+                   lambda: tr.load_optimizer_state(tr.optimizer_state())):
+        reload()
+        for group in tr.optimizer.param_groups:
+            assert isinstance(group["lr"], float) and group["capturable"] is False
+            assert group["fused"] is None
+
+
+def test_resumed_state_takes_the_trainers_adam():
+    """A state saved by a graphed step's Adam (fused, capturable, its
+    learning rate a tensor, its step counters tensors beside the
+    parameters) loads on the CPU into PyTorch's default Adam: the groups
+    keep the trainer's settings and float learning rate, the counters sit
+    on the host, and the next step is the one the unaltered state gives,
+    bit for bit."""
+    cfg = TrainConfig(monte_carlo=32, batch_size=8, learning_rate=1e-3, seed=3)
+    rv, qt = tdata.build_su2_dataset(torch.Generator().manual_seed(1), 16, device="cpu")
+    rv, qt = rv[:8], qt[:8]
+    model = UniversalQOCTransformer(**TINY, dtype=torch.float32, device="cpu")
+    model.init_like_flax(torch.Generator().manual_seed(0))
+    tr = Trainer(model, cfg, device="cpu")
+    for _ in range(2):
+        tr.train_step(rv, qt, tr.sample_errors(8, CurriculumBand(0.7)))
+    weights = copy.deepcopy(model.state_dict())
+    saved = copy.deepcopy(tr.optimizer_state())
+    card_like = copy.deepcopy(saved)
+    for group in card_like["adam"]["param_groups"]:
+        group.update(capturable=True, fused=True, lr=torch.tensor(0.5))
+    steps = []
+    for state in (saved, card_like):
+        model.load_state_dict(weights)
+        tr.load_optimizer_state(state)
+        for group in tr.optimizer.param_groups:
+            assert isinstance(group["lr"], float) and group["lr"] == 1e-3
+            assert group["capturable"] is False and group["fused"] is None
+        for st in tr.optimizer.state.values():
+            assert st["step"].device.type == "cpu" and float(st["step"]) == 2.0
+        tr.generator.manual_seed(5)
+        loss, _ = tr.train_step(rv, qt, tr.sample_errors(8, CurriculumBand(0.7)))
+        steps.append((float(loss), copy.deepcopy(model.state_dict())))
+    (loss, params), (loss1, params1) = steps
+    assert loss == loss1
+    for k, v in params.items():
+        assert torch.equal(params1[k], v), k
 
 
 # ---------------------------------------------------------------------------

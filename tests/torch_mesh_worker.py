@@ -127,11 +127,17 @@ def _tiny_trainer(mesh, inp, **cfg):
     return Trainer(model, config, mesh=mesh, device="cpu")
 
 
+def _graphs(tr):
+    """The trainer's CUDA graph counters and its Adam's capturable flag."""
+    return (tr.graph_captures, tr.graph_replays,
+            [g["capturable"] for g in tr.optimizer.param_groups])
+
+
 def task_trainer(mesh, inp):
     """Train steps of the tiny transformer on explicit global batches: the
     plain loss and the CVaR loss without dropout, then steps with dropout
     and the trainer's own draws (each: the losses, the steps' gradients,
-    the parameters)."""
+    the CUDA graph counters, the parameters)."""
     from universal_quantum_optimal_control_tpu_torch.training import CurriculumBand
 
     out = {}
@@ -144,7 +150,7 @@ def task_trainer(mesh, inp):
             # the step's gradient, clipped: Adam leaves .grad as it is
             grads.append(torch.cat([q.grad.flatten() for q in tr.model.parameters()]))
             losses.append((float(loss), float(fid)))
-        out[case] = {"losses": losses, "grads": grads,
+        out[case] = {"losses": losses, "grads": grads, "graphs": _graphs(tr),
                      "params": {k: v.clone() for k, v in tr.model.state_dict().items()}}
     tr = _tiny_trainer(mesh, inp)
     tr._place_params()
@@ -156,7 +162,7 @@ def task_trainer(mesh, inp):
         # the step's gradient, summed and clipped: Adam leaves .grad as it is
         grads.append(torch.cat([q.grad.flatten() for q in tr.model.parameters()]))
         losses.append((float(loss), float(fid)))
-    out["dropout"] = {"losses": losses, "grads": grads,
+    out["dropout"] = {"losses": losses, "grads": grads, "graphs": _graphs(tr),
                       "params": {k: v.clone() for k, v in tr.model.state_dict().items()}}
     return out
 

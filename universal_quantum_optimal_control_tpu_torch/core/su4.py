@@ -23,6 +23,7 @@ function computes in the dtype of its inputs (f32 or f64).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, NamedTuple, Tuple
 
@@ -83,8 +84,11 @@ def complex_from_ri(Ur: torch.Tensor, Ui: torch.Tensor) -> torch.Tensor:
     return torch.complex(Ur.to(torch.float32), Ui.to(torch.float32))
 
 
-def _tables(dtype: torch.dtype, device) -> Tuple[dict, dict]:
-    """The Pauli strings as (real, imag) tensors of ``dtype`` on ``device``."""
+@functools.lru_cache(maxsize=None)
+def _tables(dtype: torch.dtype, device: torch.device) -> Tuple[dict, dict]:
+    """The Pauli strings as (real, imag) tensors of ``dtype`` on ``device``,
+    copied there once: a step captured in a CUDA graph copies nothing from
+    the host.  Callers read them and never write."""
     re = {k: torch.as_tensor(v.real, dtype=dtype, device=device) for k, v in _PAULI.items()}
     im = {k: torch.as_tensor(v.imag, dtype=dtype, device=device) for k, v in _PAULI.items()}
     return re, im

@@ -12,8 +12,9 @@ the ``.npz`` weights carry over unchanged (:func:`.serialization.params_from_jax
 
 from __future__ import annotations
 
+import functools
 import itertools
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,12 +69,20 @@ def _det4_ri(Ur: torch.Tensor, Ui: torch.Tensor):
     return dr, di
 
 
+@functools.lru_cache(maxsize=None)
+def _magic(dtype: torch.dtype, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The magic basis as (real, imag) tensors of ``dtype`` on ``device``,
+    copied there once: a step captured in a CUDA graph copies nothing from
+    the host.  Callers read them and never write."""
+    return (torch.as_tensor(_QR, dtype=dtype, device=device),
+            torch.as_tensor(_QI, dtype=dtype, device=device))
+
+
 def makhlin_invariants_ri(packed_target: torch.Tensor) -> torch.Tensor:
     """Packed targets ``(B, 2, 4, 4)`` → Makhlin invariants ``(B, 3)``:
     ``(Re G1, Im G1, Re G2)``, in real arithmetic."""
     Ur, Ui = packed_target[:, 0], packed_target[:, 1]
-    Qr = torch.as_tensor(_QR, dtype=Ur.dtype, device=Ur.device)
-    Qi = torch.as_tensor(_QI, dtype=Ur.dtype, device=Ur.device)
+    Qr, Qi = _magic(Ur.dtype, Ur.device)
     Tr, Ti = _mm_ri(Qr.T, -Qi.T, Ur, Ui)           # M = Q† U Q
     Mr, Mi = _mm_ri(Tr, Ti, Qr, Qi)
     mr, mi = _mm_ri(Mr.transpose(-1, -2), Mi.transpose(-1, -2), Mr, Mi)  # m = Mᵀ M

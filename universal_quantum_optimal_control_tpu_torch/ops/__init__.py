@@ -18,3 +18,12 @@ from .propagate_su4 import (  # noqa: F401
     su4_objective_vjp_from_product_plain,
     su4_objective_vjp_plain,
 )
+
+# The wrappers that count their kernel launches in ``.launches``.  A launch
+# captured in a CUDA graph counts where the graph replays
+# (:meth:`..training.trainer.Trainer.train_step` adds a graph's counts at
+# each replay).
+COUNTED = (mean_fidelity_cuda, propagate_mc_cuda, propagate_mc_vjp_cuda,
+           mean_fidelity_su4_cuda, mean_fidelity_su4_with_product_cuda,
+           propagate_su4_mc_cuda, su4_objective_vjp_cuda,
+           su4_objective_vjp_from_product_cuda)

@@ -28,6 +28,16 @@ without dropout unless asked, as JAX's ``_objective(..., dropout_key=None)``.
 sync inside an epoch, losses stay on the device and are read once per
 epoch.  ``False`` reads each step's loss.
 
+The counterpart of the jitted step is one CUDA graph a step
+(:meth:`Trainer.train_step`): forward, backward, clip and Adam captured
+once and replayed, so the host issues one launch where the eager step
+issues some two thousand.  It engages wherever capture is safe: on a card,
+on one process (gloo's all-reduce cannot be captured) and outside anomaly
+mode; elsewhere the step runs eagerly, with the Adam it always had.  A
+graphed step's Adam is PyTorch's fused one, ``capturable``, its learning
+rate a device scalar that the host writes before each step (the schedule
+stays on the host).
+
 On a ``(data, mc)`` mesh (:mod:`..parallel.mesh`) every rank runs the same
 loop on the same global batches and gives the unsharded run's numbers:
 
@@ -61,6 +71,7 @@ import torch
 
 from ..core import objectives
 from ..models.universal_transformer import RowDraws
+from ..ops import COUNTED
 from ..parallel.mesh import DATA_AXIS, MC_AXIS, Mesh, shard_spec
 from ..utils.device import resolve_device
 from ..utils.tracing import span
@@ -157,6 +168,20 @@ def _snapshot(model: torch.nn.Module) -> StateDict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
+@dataclasses.dataclass(frozen=True)
+class _StepGraph:
+    """One captured optimizer step: the graph, the static inputs it reads
+    (``rv``, ``q_target``, then each disorder channel), the static ``loss``
+    and ``mean_fid`` it writes, and the kernel launches it holds (each
+    counting wrapper of :data:`..ops.COUNTED` with its count)."""
+
+    graph: Any
+    inputs: Tuple[torch.Tensor, ...]
+    loss: torch.Tensor
+    mean_fid: torch.Tensor
+    launches: Tuple[Tuple[Any, int], ...]
+
+
 class Trainer:
     """Curriculum trainer over disorder bands.
 
@@ -171,6 +196,10 @@ class Trainer:
         configured backend.
       device: ``None`` → CUDA (raising where there is none); ``"cpu"`` runs
         the plain versions.
+
+    ``graph_captures`` and ``graph_replays`` count the steps that captured
+    a CUDA graph and the steps that replayed one captured at an earlier
+    step (both stay 0 where the step runs eagerly).
     """
 
     def __init__(self, model: torch.nn.Module, config: TrainConfig = TrainConfig(),
@@ -204,6 +233,12 @@ class Trainer:
             make_per_target_objective(mesh, self.system.local_mean_fidelity)
             if config.tail_focus > 0 else None)
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed + 1)
+        # a step is one CUDA graph where capture is safe: on a card, on one
+        # process, outside anomaly mode
+        self._graphed = self.device.type == "cuda" and mesh is None and not config.debug_nans
+        self._side = torch.cuda.Stream(self.device) if self._graphed else None
+        self.graph_captures = 0
+        self.graph_replays = 0
         self.reset_optimizer()
 
     # ------------------------------------------------------------------
@@ -211,18 +246,37 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def reset_optimizer(self) -> None:
-        """Fresh Adam moments and schedule step (``optimizer.init``)."""
+        """Fresh Adam moments and schedule step (``optimizer.init``).  It
+        drops the step graphs, which hold the old moments; loading weights
+        with ``model.load_state_dict`` copies into the same parameters and
+        keeps them.  A graphed step's Adam is fused and capturable, its
+        learning rate a device scalar; elsewhere Adam is PyTorch's default."""
+        lr = learning_rate_at(self.config, 0)
+        if self._graphed:
+            lr = torch.tensor(lr, dtype=torch.float32, device=self.device)
         self.optimizer = torch.optim.Adam(
-            self.model.parameters(), lr=learning_rate_at(self.config, 0),
-            betas=(0.9, 0.999), eps=1e-8)
+            self.model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+            capturable=self._graphed, fused=self._graphed or None)
         self.step_count = 0
+        self._graphs: Dict[tuple, Optional[_StepGraph]] = {}
 
     def optimizer_state(self) -> Dict[str, Any]:
         return {"adam": self.optimizer.state_dict(), "step": self.step_count}
 
     def load_optimizer_state(self, state: Mapping[str, Any]) -> None:
+        """Adam's moments and step counters and the schedule's step, from
+        :meth:`optimizer_state`.  The groups keep this trainer's settings
+        and learning rate, and the step counters move where its own Adam
+        keeps them, so a state saved on the CPU resumes graphed on a card
+        and one saved there resumes on the CPU or a mesh."""
         self.reset_optimizer()
+        own = [{k: v for k, v in g.items() if k != "params"}
+               for g in self.optimizer.param_groups]
         self.optimizer.load_state_dict(state["adam"])
+        for group, settings in zip(self.optimizer.param_groups, own):
+            group.update(settings)
+        for p, st in self.optimizer.state.items():
+            st["step"] = st["step"].to(p.device if self._graphed else "cpu", torch.float32)
         self.step_count = int(state["step"])
 
     def _clip_grads(self) -> None:
@@ -231,16 +285,25 @@ class Trainer:
         norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         c = self.config.grad_clip
         for g in grads:
-            g.copy_(torch.where(norm < c, g, (g / norm) * c))
+            # written in place: a copy would be a memcpy node in a CUDA graph
+            torch.where(norm < c, g, (g / norm) * c, out=g)
+
+    def _schedule_learning_rate(self) -> None:
+        """Adam's learning rate for the next step, from the schedule; into
+        the device scalar that a captured step reads, where Adam has one."""
+        lr = learning_rate_at(self.config, self.step_count)
+        for group in self.optimizer.param_groups:
+            if torch.is_tensor(group["lr"]):
+                group["lr"].fill_(lr)
+            else:
+                group["lr"] = lr
 
     @span("trainer.optimizer")
     def apply_gradients(self) -> None:
         """Clip the gradients held in ``.grad``, then one Adam step at the
         schedule's current learning rate."""
         self._clip_grads()
-        lr = learning_rate_at(self.config, self.step_count)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
+        self._schedule_learning_rate()
         self.optimizer.step()
         self.step_count += 1
 
@@ -248,13 +311,17 @@ class Trainer:
     # Steps
     # ------------------------------------------------------------------
 
-    def _apply_model(self, rv: torch.Tensor, generator=None) -> torch.Tensor:
+    def _apply_model(self, rv: torch.Tensor, generator=None,
+                     params: Optional[StateDict] = None) -> torch.Tensor:
         kwargs: Dict[str, Any] = {"generator": generator}
         if getattr(self.model, "finetune", False):
             kwargs["base_pulse"] = self.base_pulse
+        if params is not None:
+            return torch.func.functional_call(self.model, params, (rv,), kwargs)
         return self.model(rv, **kwargs)
 
-    def _pulses(self, rv: torch.Tensor, dropout: bool) -> Tuple[torch.Tensor, slice]:
+    def _pulses(self, rv: torch.Tensor, dropout: bool,
+                params: Optional[StateDict] = None) -> Tuple[torch.Tensor, slice]:
         """The model's pulses for the rank's rows of the batch ``rv`` (all
         rows without a mesh) and those rows; dropout, from the trainer's
         generator, only when asked, with the whole batch's masks."""
@@ -264,7 +331,7 @@ class Trainer:
         if dropout:
             generator = (self.generator if self.mesh is None else
                          RowDraws(self.generator, rv.shape[0], rows))
-        return self._apply_model(rv[rows], generator), rows
+        return self._apply_model(rv[rows], generator, params), rows
 
     def sample_errors(self, batch: int, band: CurriculumBand):
         """The disorder of a whole ``(batch, M)`` batch (on a mesh too)."""
@@ -292,13 +359,15 @@ class Trainer:
         return tuple(block(e) for e in errors)
 
     def objective(self, rv: torch.Tensor, q_target: torch.Tensor, errors,
-                  dropout: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                  dropout: bool = False, *, params: Optional[StateDict] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(loss, mean E[F])`` on explicit disorder ``errors``; dropout (from
         the trainer's generator) only when asked.  On a mesh the arguments
         are the global batch and its whole disorder; the rank computes its
         block and every rank returns the global values, whose gradient here
-        is the rank's block's alone (:meth:`train_step` sums the ranks')."""
-        pulses, rows = self._pulses(rv, dropout)
+        is the rank's block's alone (:meth:`train_step` sums the ranks').
+        ``params`` (name → tensor) stand in for the model's parameters."""
+        pulses, rows = self._pulses(rv, dropout, params)
         q_target, errors = q_target[rows], self._place_errors(errors)
         if self._per_target_fid is not None:
             # CVaR: the mean loss over the worst `tail_focus` fraction of
@@ -321,7 +390,88 @@ class Trainer:
     def train_step(self, rv: torch.Tensor, q_target: torch.Tensor, errors,
                    dropout: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """One optimizer step on explicit disorder; returns the step's
-        ``(loss, mean E[F])`` as device tensors (no host sync)."""
+        ``(loss, mean E[F])`` as device tensors (no host sync).
+
+        Where the step is graphed, its graphs are kept by the shapes and
+        dtypes of the inputs and by ``dropout``.  The first step with a new
+        key runs eagerly on the stream that will capture (the warm-up, which
+        also creates Adam's state); the second captures the step there and
+        runs the graph once; every later one copies its inputs into the
+        graph's and replays it.  The graph draws its dropout masks from the
+        trainer's generator, where the eager step would: the same bits, and
+        the generator left where the eager step leaves it."""
+        if not self._graphed:
+            return self._eager_step(rv, q_target, errors, dropout)
+        inputs = (rv, q_target, *errors)
+        key = (dropout,) + tuple((tuple(t.shape), t.dtype) for t in inputs)
+        if key not in self._graphs:
+            self._graphs[key] = None
+            current = torch.cuda.current_stream(self.device)
+            self._side.wait_stream(current)
+            with torch.cuda.stream(self._side):
+                out = self._eager_step(rv, q_target, errors, dropout)
+            current.wait_stream(self._side)
+            return out
+        step = self._graphs[key]
+        if step is None:
+            step = self._graphs[key] = self._capture(inputs, dropout)
+            self.graph_captures += 1
+            return self._replay(step, inputs, dropout)
+        with span("trainer.graph_replay"):
+            out = self._replay(step, inputs, dropout)
+        self.graph_replays += 1
+        return out
+
+    def _capture(self, inputs: Tuple[torch.Tensor, ...], dropout: bool) -> _StepGraph:
+        """Capture one step (forward, backward, clip, Adam) on the side
+        stream, reading static buffers shaped as ``inputs``; it runs nothing
+        (:meth:`_replay` fills the buffers and runs it)."""
+        static = tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                       for t in inputs)
+        params = {n: p for n, p in self.model.named_parameters() if p.requires_grad}
+        # the graph differentiates fresh leaves on the parameters' storage:
+        # a parameter's own gradient node, kept alive by an autograd graph
+        # from an earlier eager backward, would tie the capture to the
+        # stream of that backward, and a capture may not wait on the
+        # default stream
+        leaves = {n: p.detach().requires_grad_() for n, p in params.items()}
+        self.optimizer.zero_grad(set_to_none=True)   # the warm-up's, freed before the graph's
+        counts = [f.launches for f in COUNTED]
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        with torch.cuda.graph(graph, stream=self._side):
+            loss, mean_fid = self.objective(static[0], static[1], static[2:], dropout,
+                                            params=leaves)
+            with span("trainer.backward", backward=True):
+                grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+            # the graph's own gradients, which every replay rewrites
+            for p, g in zip(params.values(), grads):
+                p.grad = g
+            with span("trainer.optimizer"):
+                self._clip_grads()
+                self.optimizer.step()
+        # a capture launches nothing: the wrappers' counts move to the replays
+        launches = tuple((f, f.launches - n) for f, n in zip(COUNTED, counts)
+                         if f.launches != n)
+        for f, n in launches:
+            f.launches -= n
+        return _StepGraph(graph, static, loss.detach(), mean_fid.detach(), launches)
+
+    def _replay(self, step: _StepGraph, inputs: Tuple[torch.Tensor, ...],
+                dropout: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        for dst, src in zip(step.inputs, inputs):
+            dst.copy_(src)
+        self.model.train(dropout)
+        self._schedule_learning_rate()
+        step.graph.replay()
+        for f, n in step.launches:
+            f.launches += n
+        self.step_count += 1
+        # copies: the next replay overwrites the static outputs
+        return step.loss.clone(), step.mean_fid.clone()
+
+    def _eager_step(self, rv: torch.Tensor, q_target: torch.Tensor, errors,
+                    dropout: bool) -> Tuple[torch.Tensor, torch.Tensor]:
         self.optimizer.zero_grad(set_to_none=True)
         loss, mean_fid = self.objective(rv, q_target, errors, dropout)
         with span("trainer.backward", backward=True):

@@ -23,6 +23,9 @@ The spans of the port, and the layer each times:
 ``trainer.step``               ``Trainer.train_step``: one optimizer step
 ``trainer.backward``           ``loss.backward()`` inside the step
 ``trainer.optimizer``          ``Trainer.apply_gradients``: clip, then Adam
+``trainer.graph_replay``       a step that replays its CUDA graph: the
+                               inputs' copies and the replay, inside which
+                               no other span opens (no Python runs there)
 ``model.forward``              the pulse models' ``forward``
 ``mc.mean_fidelity``           the Monte-Carlo objective's forward, either
                                backend
