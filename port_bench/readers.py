@@ -46,3 +46,12 @@ def roofline_pct(ctx, unit, family):
         return None
     bound = bound_s(work["mc"]["flops"], work["mc"]["bytes"]) * tr["units"]
     return 100.0 * bound / tr["port_kernel_s"]
+
+
+def device_ms(ctx, unit, cls):
+    """Device time of one class of operations (:data:`port_bench.trace.CLASSES`)
+    in the traced sub-window, in milliseconds a unit."""
+    tr = ctx["trace"]
+    if ctx["unit"] != unit or not tr or not tr.get("by_class", {}).get(cls):
+        return None
+    return 1e3 * tr["by_class"][cls] / tr["units"]

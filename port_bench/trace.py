@@ -6,7 +6,9 @@ annotation; the trace is written to a temporary file, read back and
 deleted.  Device operations are the kernels, copies and sets; their
 union clipped to the annotation is the busy time.  A kernel is the
 program's own unless its name marks it as ATen's, cuBLAS's, cuDNN's,
-NCCL's or another library's.
+NCCL's or another library's, or as a copy or a set (a CUDA graph's memcpy
+and memset nodes run as kernels).  Device time is also summed by class of
+operation (:data:`CLASSES`).
 """
 
 from __future__ import annotations
@@ -24,13 +26,34 @@ import torch
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LIBRARY = re.compile(
     r"at::|at_cuda_detail|c10::|cunn_|cublas|cutlass|gemm|gemv|xmma|sgemm|splitK|"
-    r"nvjet|softmax_warp|dot_kernel|nrm2|cudnn|nccl|cub::|thrust::|flash|fmha|pytorch_",
+    r"nvjet|softmax_warp|dot_kernel|nrm2|cudnn|nccl|cub::|thrust::|flash|fmha|pytorch_|"
+    r"memcpy|memset",
     re.IGNORECASE)
 WINDOW = "port_bench.window"
+# Classes of a library's kernels, the first whose pattern matches the name;
+# a kernel that none matches is "other" (see :func:`op_class`).
+CLASSES = (
+    ("gemm", re.compile(r"gemm|gemv|xmma|nvjet|splitK|dot_kernel|cublas", re.IGNORECASE)),
+    ("draws", re.compile(r"distribution_|philox|curand|normal_kernel", re.IGNORECASE)),
+    ("elementwise", re.compile(r"elementwise|reduce_kernel|multi_tensor_apply|foreach|fused_adam",
+                               re.IGNORECASE)),
+)
+_COPY = re.compile(r"memcpy|memset", re.IGNORECASE)
 
 
 def is_library_kernel(name: str) -> bool:
     return bool(_LIBRARY.search(name))
+
+
+def op_class(cat: str, name: str) -> str:
+    """The class of one device operation: "copy" for a copy or a set, kernel
+    or not; "program" for the program's own kernels; else the first of
+    :data:`CLASSES` whose pattern matches, or "other"."""
+    if cat != "kernel" or _COPY.search(name):
+        return "copy"
+    if not is_library_kernel(name):
+        return "program"
+    return next((cls for cls, pattern in CLASSES if pattern.search(name)), "other")
 
 
 def profile(unit: Callable[[], None], n: int, device: torch.device) -> List[dict]:
@@ -71,7 +94,8 @@ def _union(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
 def reduce(events: List[dict], units: int) -> Dict:
     """Sums over the annotated sub-window, in seconds: ``window_s``,
     ``busy_s`` (union of device operations), ``kernels`` (count),
-    ``port_kernel_s`` (the program's own kernels), and the breakdown's ten
+    ``port_kernel_s`` (the program's own kernels), ``by_class`` (device time
+    of each class of operation, :func:`op_class`), and the breakdown's ten
     longest device operations and idle gaps, each gap named by the
     innermost host operation running at its middle."""
     window = [e for e in events if e.get("name") == WINDOW and e.get("cat") == "user_annotation"]
@@ -89,8 +113,10 @@ def reduce(events: List[dict], units: int) -> Dict:
             host.append((a, b, e["name"]))
     kernels = [d for d in device if d[2] == "kernel"]
     by_name: Dict[str, float] = defaultdict(float)
-    for a, b, _, name in device:
+    by_class: Dict[str, float] = defaultdict(float)
+    for a, b, cat, name in device:
         by_name[name] += (b - a) * 1e-6
+        by_class[op_class(cat, name)] += (b - a) * 1e-6
     busy = _union([(a, b) for a, b, _, _ in device])
     gaps: Dict[str, float] = defaultdict(float)
     edges = [w0] + [x for iv in busy for x in iv] + [w1]
@@ -119,6 +145,7 @@ def reduce(events: List[dict], units: int) -> Dict:
                              if not is_library_kernel(name)) * 1e-6,
         "port_kernels": sorted({name[:80] for _, _, _, name in kernels
                                 if not is_library_kernel(name)}),
+        "by_class": dict(by_class),
         "breakdown": {"device_ops": [[n[:120], s] for n, s in top],
                       "idle_gaps": [[n[:120], s] for n, s in
                                     sorted(gaps.items(), key=lambda kv: -kv[1])[:10]]},
