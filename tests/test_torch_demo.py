@@ -124,6 +124,31 @@ def test_two_qubit_artifacts_match_jax(variant, ncols, tmp_path):
     assert Path(t["csv"]).read_bytes() == Path(j["csv"]).read_bytes()
 
 
+@pytest.mark.artifacts
+def test_two_qubit_model_branch_builds_its_model_once():
+    """Two requests for one model variant build its model once and give
+    the same table, the one ``model_gate_pulses`` (the CLIs' path, which
+    builds the model on every call) gives."""
+    from universal_quantum_optimal_control_tpu_torch.optimizers.two_qubit_grape import (
+        named_two_qubit_targets)
+    from universal_quantum_optimal_control_tpu_torch.training.systems import SU4System
+    from universal_quantum_optimal_control_tpu_torch.workloads.two_qubit_eval import (
+        model_gate_pulses)
+
+    tapp._two_qubit_model.cache_clear()
+    try:
+        first = tapp.two_qubit_pulse_table("two_qubit_d2_kak", "cz", device="cpu")[0]
+        second = tapp.two_qubit_pulse_table("two_qubit_d2_kak", "cz", device="cpu")[0]
+        info = tapp._two_qubit_model.cache_info()
+    finally:
+        tapp._two_qubit_model.cache_clear()
+    assert (info.misses, info.hits) == (1, 1)
+    np.testing.assert_array_equal(first, second)
+    checkpoint, kw = tapp.two_qubit_model_kwargs("two_qubit_d2_kak")
+    packed = SU4System.pack_target(named_two_qubit_targets()["cz"][None])
+    np.testing.assert_array_equal(first, model_gate_pulses(checkpoint, packed, **kw)[0].numpy())
+
+
 def _jax_parser():
     """The parser the JAX ``main`` builds (it builds it inline)."""
     seen = {}

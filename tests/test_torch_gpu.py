@@ -40,6 +40,13 @@ training step under the profiler, B1 + B3/B2 (single qubit) and B4 + B5
 thread, nests under ``trainer.backward``, and in the trace each program
 kernel's launch lies inside the span that launched it.
 
+The served models' eval forward as a CUDA graph (``models/eval_graph.py``):
+the replay against the eager forward (bf16 and f32 encoders, B = 1 and 8,
+the ``finetune`` blend, the two-qubit model on KAK tokens), an in-place
+``load_state_dict`` served by the same graph, new storage captured anew, a
+trainer's step graph after the model served graphed, and one model served
+from twelve threads at once.
+
 This file imports nothing of JAX, so it also runs where JAX is absent:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
@@ -1047,3 +1054,147 @@ def test_capture_while_an_eager_graph_through_the_model_is_alive(card):
         torch.testing.assert_close(loss, loss0, rtol=1e-6, atol=0)
         torch.testing.assert_close(fid, fid0, rtol=1e-6, atol=0)
     assert held.grad_fn is not None
+
+
+def _served(kind, dev, B, seed=1):
+    """A small model in eval mode and ``B`` inputs for it: the single-qubit
+    model with a bf16 or f32 encoder (``"bf16"``, ``"f32"``), its
+    ``finetune`` blend with a base pulse (``"finetune"``, bf16), or the
+    two-qubit model on KAK tokens (``"kak"``, f32).  Returns the model, a
+    function of a seed that draws inputs, and the base pulse (or None)."""
+    from universal_quantum_optimal_control_tpu_torch.models import (
+        TwoQubitQOCTransformer, UniversalQOCTransformer, normalize_pulse_space)
+
+    L = 16
+    if kind == "kak":
+        space = (("phi1", (-3.15, 3.15)), ("phi2", (-3.15, 3.15)), ("omega", (0.05, 1.0)),
+                 ("tau", (0.1, 0.5)))
+        model = TwoQubitQOCTransformer(pulse_space=normalize_pulse_space(space), max_pulses=L,
+                                       d_model=64, n_layers=2, n_heads=4, kak_tokens=True,
+                                       dtype=torch.float32, device=dev)
+    else:
+        model = UniversalQOCTransformer(max_pulses=L, d_model=64, n_layers=2, n_heads=4,
+                                        finetune=kind == "finetune",
+                                        dtype=torch.float32 if kind == "f32" else torch.bfloat16,
+                                        device=dev)
+    model.init_like_flax(torch.Generator(device=dev).manual_seed(seed))
+    base = None
+    if kind == "finetune":
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        base = torch.stack([6.0 * torch.rand(L, generator=g, device=dev) - 3.0,
+                            0.1 + 0.4 * torch.rand(L, generator=g, device=dev)], dim=-1)
+
+    def draw(s):
+        g = torch.Generator(device=dev).manual_seed(100 + s)
+        if kind == "kak":
+            return torch.randn((B, 9, 8), generator=g, device=dev)
+        n = torch.nn.functional.normalize(torch.randn((B, 3), generator=g, device=dev), dim=-1)
+        return torch.cat([n, 6.0 * torch.rand((B, 1), generator=g, device=dev)], dim=-1)
+    return model.eval(), draw, base
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("kind", ["bf16", "f32", "finetune", "kak"])
+def test_replayed_forward_is_the_eager_forward(card, kind, B):
+    """Four calls of a served model (an eager warm-up, a capture, two
+    replays) give the eager forward's answers on their own inputs within
+    1e-6 (the same kernels), each a tensor of its own that the next replay
+    leaves as it was."""
+    model, draw, base = _served(kind, card, B)
+    xs = [draw(s) for s in range(4)]
+    kw = {} if base is None else {"base_pulse": base}
+    with torch.no_grad():
+        want = [model._forward(x, base, None) for x in xs]
+        got = [model(x, **kw) for x in xs]
+        kept = [t.clone() for t in got]
+        model(draw(9), **kw)                   # one more replay
+    torch.cuda.synchronize()
+    assert (model.graph_captures, model.graph_replays) == (1, 3)
+    for a, b, k in zip(got, want, kept):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+        assert torch.equal(a, k)
+    assert len({t.data_ptr() for t in got}) == 4
+
+
+def test_load_state_dict_keeps_the_graph_and_serves_the_new_weights(card):
+    """An in-place ``load_state_dict`` keeps the captured graph, whose next
+    answer is the new weights'; a parameter given new storage drops it, and
+    the forward warms up and captures anew."""
+    model, draw, _ = _served("bf16", card, 1)
+    other, *_ = _served("bf16", card, 1, seed=7)
+    x = draw(0)
+    with torch.no_grad():
+        for _ in range(3):
+            model(x)
+        model.load_state_dict(other.state_dict())
+        torch.testing.assert_close(model(x), other._forward(x, None, None), rtol=0, atol=1e-6)
+        assert (model.graph_captures, model.graph_replays) == (1, 2)
+        model.head.weight = torch.nn.Parameter(model.head.weight.detach().clone())
+        for _ in range(3):
+            torch.testing.assert_close(model(x), other._forward(x, None, None), rtol=0,
+                                       atol=1e-6)
+    assert (model.graph_captures, model.graph_replays) == (2, 3)
+
+
+def test_trainer_captures_after_the_model_served_graphed(card):
+    """A model that served through its graph still trains through the
+    trainer's graph (an eager warm-up, a capture, two replays), as a fresh
+    trainer's steps; its served graph then answers with the trained weights,
+    which Adam wrote in place."""
+    tr, x, target = _tiny_trainer("su2", card)
+    model = tr.model.eval()
+    with torch.no_grad():
+        for _ in range(3):
+            model(x)
+    assert (model.graph_captures, model.graph_replays) == (1, 1)
+    got = _four_steps(tr, x, target, graphed=True)
+    fresh, *_ = _tiny_trainer("su2", card)
+    want = _four_steps(fresh, x, target, graphed=True)
+    assert (tr.graph_captures, tr.graph_replays) == (1, 2)
+    for (loss, fid), (loss0, fid0) in zip(got, want):
+        torch.testing.assert_close(loss, loss0, rtol=1e-6, atol=0)
+        torch.testing.assert_close(fid, fid0, rtol=1e-6, atol=0)
+    model.eval()
+    with torch.no_grad():
+        torch.testing.assert_close(model(x), model._forward(x, None, None), rtol=0, atol=1e-6)
+    assert (model.graph_captures, model.graph_replays) == (1, 2)
+
+
+def test_served_model_from_several_threads(card):
+    """Threads that call one served model at once (as Gradio's workers may)
+    each get their own input's answer: the copy into the graph's input, the
+    replay and the copy of its output happen under the model's lock."""
+    import sys
+    import threading
+
+    model, draw, _ = _served("f32", card, 1)
+    xs = [draw(s) for s in range(16)]
+    with torch.no_grad():
+        want = [model._forward(x, None, None) for x in xs]
+        model(xs[0])
+        model(xs[0])
+    assert model.graph_captures == 1
+    wrong, done = [], []
+
+    def serve(t):
+        with torch.no_grad():
+            for i in range(40):
+                j = (t + i) % len(xs)
+                out = model(xs[j])
+                if not torch.allclose(out, want[j], rtol=0, atol=1e-6):
+                    wrong.append((t, i))
+        done.append(t)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=serve, args=(t,)) for t in range(12)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    assert sorted(done) == list(range(12)) and not wrong
+    assert model.graph_replays == 12 * 40

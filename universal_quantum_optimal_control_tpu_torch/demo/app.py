@@ -49,7 +49,7 @@ from ..training.systems import SU4System
 from ..utils import load_model_params, resolve_device
 from ..workloads.finetune_gates import load_gate_bundle
 from ..workloads.finetune_two_qubit_gates import load_two_qubit_gate_bundle
-from ..workloads.two_qubit_eval import model_gate_pulses
+from ..workloads.two_qubit_eval import load_two_qubit_model, model_inputs
 from ..workloads.universal_single_qubit import load_base_pulse
 
 __all__ = ["MODEL_VARIANTS", "TWO_QUBIT_VARIANTS", "load_pipeline", "compute_pulses",
@@ -167,9 +167,18 @@ def two_qubit_pulse_table(variant: str, gate: str = "cz", device=None
         pulses = np.asarray(tables[gate])
     else:
         checkpoint, kw = two_qubit_model_kwargs(variant)
-        packed = SU4System.pack_target(u_target[None]).to(resolve_device(device))
-        pulses = model_gate_pulses(checkpoint, packed, **kw)[0].cpu().numpy()
+        dev = resolve_device(device)
+        packed = SU4System.pack_target(u_target[None]).to(dev)
+        model = _two_qubit_model(checkpoint, device=dev, **kw)
+        with torch.no_grad():
+            pulses = model(model_inputs(packed, kw.get("kak_tokens", False)))[0].cpu().numpy()
     return pulses, u_target, system, f"{variant}:{gate}"
+
+
+# a two-qubit variant's eval model, built once per checkpoint, keywords and
+# device as load_pipeline keeps the single-qubit one: a request then reuses
+# its weights and, on a card, its forward's CUDA graph
+_two_qubit_model = functools.lru_cache(maxsize=4)(load_two_qubit_model)
 
 
 def two_qubit_robustness(variant: str, gate: str = "cz", monte_carlo: int = 2000,

@@ -22,6 +22,7 @@ from torch import nn
 
 from ..utils.device import resolve_device
 from ..utils.tracing import span
+from .eval_graph import EvalGraphs
 from .score_embedding import sinusoidal_positional_encoding
 from .universal_transformer import (EncoderBlock, _linear, _pulse_space_json,
                                     init_like_flax, normalize_pulse_space, wrap_angle)
@@ -143,6 +144,10 @@ class TwoQubitQOCTransformer(nn.Module):
         self.register_buffer(
             "high", torch.tensor([hi for _, (_, hi) in self.pulse_space], device=dev),
             persistent=False)
+        # the eval forward's CUDA graphs, and how many were captured and replayed
+        self.graphs = EvalGraphs()
+        self.graph_captures = 0
+        self.graph_replays = 0
 
     @property
     def param_dim(self) -> int:
@@ -157,7 +162,12 @@ class TwoQubitQOCTransformer(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``(B, 2, 4, 4)`` packed targets (or, with ``kak_tokens``, the
         ``(B, T, 8)`` host tokens) → ``(B, max_pulses, P)`` pulses.
-        ``generator`` draws the dropout masks in train mode."""
+        ``generator`` draws the dropout masks in train mode.  On a card, in
+        eval mode without autograd, the forward replays a CUDA graph
+        (:mod:`.eval_graph`)."""
+        return self.graphs(self, self._forward, packed_target, None, generator)
+
+    def _forward(self, packed_target: torch.Tensor, base: None, generator) -> torch.Tensor:
         dtype = self.dtype
         if self.kak_tokens:
             tokens = packed_target.float()

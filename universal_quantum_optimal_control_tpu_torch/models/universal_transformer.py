@@ -32,6 +32,7 @@ from torch import nn
 
 from ..utils.device import resolve_device
 from ..utils.tracing import span
+from .eval_graph import EvalGraphs
 from .score_embedding import score_features, sinusoidal_positional_encoding
 
 __all__ = ["UniversalQOCTransformer", "EncoderBlock", "RowDraws", "init_like_flax",
@@ -223,6 +224,10 @@ class UniversalQOCTransformer(nn.Module):
         self.register_buffer(
             "high", torch.tensor([hi for _, (_, hi) in self.pulse_space], device=dev),
             persistent=False)
+        # the eval forward's CUDA graphs, and how many were captured and replayed
+        self.graphs = EvalGraphs()
+        self.graph_captures = 0
+        self.graph_replays = 0
 
     @property
     def param_dim(self) -> int:
@@ -238,7 +243,12 @@ class UniversalQOCTransformer(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``(B, 4)`` rotation vectors → ``(B, max_pulses, P)`` pulses.
         ``generator`` (or a :class:`RowDraws`) draws the dropout masks in
-        train mode."""
+        train mode.  On a card, in eval mode without autograd, the forward
+        replays a CUDA graph (:mod:`.eval_graph`)."""
+        return self.graphs(self, self._forward, rotation_vector, base_pulse, generator)
+
+    def _forward(self, rotation_vector: torch.Tensor, base_pulse: Optional[torch.Tensor],
+                 generator) -> torch.Tensor:
         dtype = self.dtype
         tokens, phi_offset = score_features(rotation_vector.float(),
                                             self.middle_convention)

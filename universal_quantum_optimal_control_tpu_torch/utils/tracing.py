@@ -27,6 +27,9 @@ The spans of the port, and the layer each times:
                                inputs' copies and the replay, inside which
                                no other span opens (no Python runs there)
 ``model.forward``              the pulse models' ``forward``
+``model.graph_replay``         a forward that replays its CUDA graph
+                               (``models/eval_graph.py``): the input's
+                               copy, the replay and the output's copy
 ``mc.mean_fidelity``           the Monte-Carlo objective's forward, either
                                backend
 ``mc.mean_fidelity.backward``  the kernels' backward (B3 + B2, or B5)
