@@ -47,6 +47,9 @@ the ``finetune`` blend, the two-qubit model on KAK tokens), an in-place
 trainer's step graph after the model served graphed, and one model served
 from twelve threads at once.
 
+The trainer's clip at the flagship's 132 leaves: a handful of kernels in a
+CUDA graph, whatever the number of leaves, and the eager clip's bits.
+
 This file imports nothing of JAX, so it also runs where JAX is absent:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
@@ -816,8 +819,10 @@ def _tiny_trainer(family, dev, backend="pallas", **cfg):
     """A small model's trainer, its inputs and targets, through the kernels
     (B1 + B3/B2, or B4 + B5; ``backend`` "xla" or "xla_remat": the plain
     versions), with weights drawn from a fixed seed: ``"su2"`` the
-    single-qubit model, ``"su4"`` the two-qubit one on KAK tokens,
-    ``"su4_features"`` on the target's rows and its Makhlin invariants."""
+    single-qubit model, ``"su2_d512"`` it at the flagship's widths (d512 × 8,
+    16 heads, L = 100: 132 leaves, 25.3 M parameters), ``"su4"`` the
+    two-qubit one on KAK tokens, ``"su4_features"`` on the target's rows and
+    its Makhlin invariants."""
     from universal_quantum_optimal_control_tpu_torch.models import (
         TwoQubitQOCTransformer, UniversalQOCTransformer, normalize_pulse_space)
     from universal_quantum_optimal_control_tpu_torch.training import TrainConfig, Trainer
@@ -826,9 +831,10 @@ def _tiny_trainer(family, dev, backend="pallas", **cfg):
     B, M = 4, 256
     config = TrainConfig(monte_carlo=M, batch_size=B, backend=backend, **cfg)
     g = torch.Generator(device=dev).manual_seed(0)
-    if family == "su2":
-        model = UniversalQOCTransformer(max_pulses=8, d_model=32, n_layers=2, n_heads=4,
-                                        dtype=torch.float32, device=dev)
+    if family in ("su2", "su2_d512"):
+        width = (dict(max_pulses=8, d_model=32, n_layers=2, n_heads=4) if family == "su2" else
+                 dict(max_pulses=100, d_model=512, n_layers=8, n_heads=16))
+        model = UniversalQOCTransformer(**width, dtype=torch.float32, device=dev)
         system = None
         x = torch.cat([torch.nn.functional.normalize(torch.randn((B, 3), generator=g,
                                                                  device=dev), dim=-1),
@@ -933,7 +939,7 @@ def _four_steps(tr, x, target, graphed):
 
 @pytest.mark.parametrize("family,backend", [
     ("su2", "pallas"), ("su4", "pallas"), ("su4_features", "pallas"),
-    ("su2", "xla_remat"), ("su4", "xla")])
+    ("su2", "xla_remat"), ("su4", "xla"), ("su2_d512", "pallas")])
 def test_graphed_steps_are_the_eager_composition(card, family, backend):
     """Four steps through the CUDA graph (an eager warm-up, a capture, two
     replays) against four composed by hand with the same capturable Adam,
@@ -945,7 +951,8 @@ def test_graphed_steps_are_the_eager_composition(card, family, backend):
     ``reset_optimizer`` the next step runs eagerly again and the one after
     it captures anew.  The kernels' path, the KAK-feature model (its magic
     basis cached on the card), and the plain paths with checkpointed
-    segments (SU(2)) and Pauli tables (SU(4))."""
+    segments (SU(2)) and Pauli tables (SU(4)); and the single-qubit model at
+    the flagship's widths, whose clip spans 132 leaves."""
     from universal_quantum_optimal_control_tpu_torch.ops import COUNTED
 
     def launches(run):
@@ -976,6 +983,43 @@ def test_graphed_steps_are_the_eager_composition(card, family, backend):
     more = _four_steps(tr, x, target, graphed=True)
     assert (tr.graph_captures, tr.graph_replays) == (2, 4)
     assert all(bool(torch.isfinite(loss)) for loss, _ in more)
+
+
+def test_flagship_clip_is_a_few_kernels_in_a_graph(card, tmp_path):
+    """The clip over the d512 × 8 model's 132 leaves, captured in a CUDA
+    graph as the step captures it and replayed under the profiler: at most 12
+    kernels (one multi-tensor norm, one multi-tensor division and the
+    scalar ops between them, where a loop over the leaves took ~7 a leaf,
+    973 in all), and the replay's gradients the eager clip's on the same
+    gradients, bit for bit, each the gradient scaled by c/‖g‖ (‖g‖ ≈ 5000,
+    c = 1) within 1e-6."""
+    import json
+
+    tr, *_ = _tiny_trainer("su2_d512", card)
+    params = list(tr.model.parameters())
+    g = torch.Generator(device=card).manual_seed(2)
+    grads = [torch.randn(p.shape, generator=g, device=card) for p in params]
+    for p, x in zip(params, grads):
+        p.grad = x.clone()
+    norm = float(tr._clip_grads())
+    want = [p.grad.clone() for p in params]
+    for p, x in zip(params, grads):
+        p.grad.copy_(x)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tr._clip_grads()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "clip.json"))
+    events = json.loads((tmp_path / "clip.json").read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert 0 < len(kernels) <= 12, kernels
+    exact = math.sqrt(sum(float(x.double().square().sum()) for x in grads))
+    assert abs(norm / exact - 1.0) <= 1e-6 and norm > 1000.0
+    for p, w, x in zip(params, want, grads):
+        assert torch.equal(p.grad, w)
+        torch.testing.assert_close(w.double(), x.double() / exact, rtol=1e-6, atol=0)
 
 
 def test_no_graph_under_anomaly_mode(card):

@@ -196,6 +196,67 @@ def test_clip_then_adam_matches_optax(schedule):
     assert tr.step_count == 5
 
 
+@pytest.mark.parametrize("scale", [1e-2, 1e-4])   # ‖g‖ ≈ 50 and 0.5 against c = 1
+def test_clip_at_the_flagships_shapes(scale):
+    """The clip over the 132 leaves of the d512 × 8 model (25.3 M f32
+    entries), one step with ‖g‖ well above c and one below, and the last leaf
+    without a gradient: the global norm within 1e-6 relative of a float64
+    norm, the clipped leaves within 1e-6 relative of the float64 clip
+    (g/‖g‖)·c, the unclipped ones bit for bit as they were, and the leaf
+    without a gradient left without one."""
+    model = UniversalQOCTransformer(max_pulses=100, d_model=512, n_layers=8, n_heads=16,
+                                    dtype=torch.float32, device="cpu")
+    params = list(model.parameters())
+    assert len(params) == 132 and sum(p.numel() for p in params) == 25_326_280
+    tr = Trainer(model, TrainConfig(grad_clip=1.0), device="cpu")
+    g = torch.Generator().manual_seed(21)
+    for p in params[:-1]:
+        p.grad = torch.randn(p.shape, generator=g) * scale
+    before = [p.grad.clone() for p in params[:-1]]
+    norm64 = math.sqrt(sum(float(b.double().square().sum()) for b in before))
+    assert (norm64 > 10.0) == (scale == 1e-2) and (norm64 < 0.9) == (scale == 1e-4)
+
+    norm = tr._clip_grads()
+    assert abs(float(norm) / norm64 - 1.0) <= 1e-6
+    assert params[-1].grad is None
+    for p, b in zip(params[:-1], before):
+        if norm64 < 1.0:
+            assert torch.equal(p.grad, b)
+        else:
+            c = tr.config.grad_clip
+            torch.testing.assert_close(p.grad.double(), b.double() / norm64 * c,
+                                       rtol=1e-6, atol=0)
+
+
+def test_clip_dispatches_as_many_ops_for_3_leaves_as_for_132():
+    """The clip is two multi-tensor passes and a few scalar ops between them:
+    the ATen ops it dispatches are the same for 3 leaves and for 132, with
+    none a leaf."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    def ops(n):
+        model = _zero_params(([(3, 5), (5,), (2, 2, 2)] * 44)[:n])
+        tr = Trainer(model, TrainConfig(grad_clip=1.0), device="cpu")
+        for p in model.parameters():
+            p.grad = torch.full_like(p, 2.0)
+        with Ops() as mode:
+            tr._clip_grads()
+        assert all(bool((p.grad < 2.0).all()) for p in model.parameters())   # clipped
+        return mode.names
+
+    few, many = ops(3), ops(132)
+    assert few == many and len(few) <= 10, (few, many)
+
+
 def test_cosine_schedule_matches_optax_step_for_step():
     """1e-6 relative, plus two f32 ulps of the peak rate: optax evaluates
     the warm-up (init − peak)·frac + peak in f32, and its cancellation near
