@@ -40,7 +40,7 @@ training step under the profiler, B1 + B3/B2 (single qubit) and B4 + B5
 thread, nests under ``trainer.backward``, and in the trace each program
 kernel's launch lies inside the span that launched it.
 
-The served models' eval forward as a CUDA graph (``models/eval_graph.py``):
+The served models' eval forward as a CUDA graph (``ops/graphs.py``):
 the replay against the eager forward (bf16 and f32 encoders, B = 1 and 8,
 the ``finetune`` blend, the two-qubit model on KAK tokens), an in-place
 ``load_state_dict`` served by the same graph, new storage captured anew, a
@@ -966,8 +966,8 @@ def test_graphed_steps_are_the_eager_composition(card, family, backend):
     want, want_launches = launches(lambda: _four_steps(ref, x, target, graphed=False))
     assert got_launches == want_launches
     assert (sum(want_launches) > 0) == (backend == "pallas")
-    assert (tr.graph_captures, tr.graph_replays) == (1, 2)
-    assert (ref.graph_captures, ref.graph_replays) == (0, 0)
+    assert (tr.graphs.captures, tr.graphs.replays) == (1, 2)
+    assert (ref.graphs.captures, ref.graphs.replays) == (0, 0)
     assert all(torch.is_tensor(g["lr"]) and g["capturable"] and g["fused"]
                for g in tr.optimizer.param_groups)
     for (loss, fid), (loss0, fid0) in zip(got, want):
@@ -981,7 +981,7 @@ def test_graphed_steps_are_the_eager_composition(card, family, backend):
 
     tr.reset_optimizer()
     more = _four_steps(tr, x, target, graphed=True)
-    assert (tr.graph_captures, tr.graph_replays) == (2, 4)
+    assert (tr.graphs.captures, tr.graphs.replays) == (2, 4)
     assert all(bool(torch.isfinite(loss)) for loss, _ in more)
 
 
@@ -1030,7 +1030,7 @@ def test_no_graph_under_anomaly_mode(card):
     for bit."""
     tr, x, target = _tiny_trainer("su2", card, debug_nans=True)
     got = _four_steps(tr, x, target, graphed=True)
-    assert (tr.graph_captures, tr.graph_replays) == (0, 0)
+    assert (tr.graphs.captures, tr.graphs.replays) == (0, 0)
     assert all(isinstance(g["lr"], float) and not g["capturable"] and not g["fused"]
                for g in tr.optimizer.param_groups)
     ref, *_ = _tiny_trainer("su2", card, debug_nans=True)
@@ -1064,7 +1064,7 @@ def test_optimizer_state_resumes_across_devices(card):
         assert st["step"].device == p.device and float(st["step"]) == 2.0
         assert torch.equal(st["exp_avg"].cpu(), st0["exp_avg"])
     out = _four_steps(tr, x.to(card), target.to(card), graphed=True)
-    assert (tr.graph_captures, tr.graph_replays, tr.step_count) == (1, 2, 6)
+    assert (tr.graphs.captures, tr.graphs.replays, tr.step_count) == (1, 2, 6)
     assert all(bool(torch.isfinite(loss)) for loss, _ in out)
 
     back, *_ = _tiny_trainer("su2", "cpu")
@@ -1093,7 +1093,7 @@ def test_capture_while_an_eager_graph_through_the_model_is_alive(card):
     got = _four_steps(tr, x, target, graphed=True)
     fresh, *_ = _tiny_trainer("su2", card)
     want = _four_steps(fresh, x, target, graphed=True)
-    assert (tr.graph_captures, tr.graph_replays) == (1, 2)
+    assert (tr.graphs.captures, tr.graphs.replays) == (1, 2)
     for (loss, fid), (loss0, fid0) in zip(got, want):
         torch.testing.assert_close(loss, loss0, rtol=1e-6, atol=0)
         torch.testing.assert_close(fid, fid0, rtol=1e-6, atol=0)
@@ -1153,7 +1153,7 @@ def test_replayed_forward_is_the_eager_forward(card, kind, B):
         kept = [t.clone() for t in got]
         model(draw(9), **kw)                   # one more replay
     torch.cuda.synchronize()
-    assert (model.graph_captures, model.graph_replays) == (1, 3)
+    assert (model.graphs.captures, model.graphs.replays) == (1, 3)
     for a, b, k in zip(got, want, kept):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
         assert torch.equal(a, k)
@@ -1172,12 +1172,12 @@ def test_load_state_dict_keeps_the_graph_and_serves_the_new_weights(card):
             model(x)
         model.load_state_dict(other.state_dict())
         torch.testing.assert_close(model(x), other._forward(x, None, None), rtol=0, atol=1e-6)
-        assert (model.graph_captures, model.graph_replays) == (1, 2)
+        assert (model.graphs.captures, model.graphs.replays) == (1, 2)
         model.head.weight = torch.nn.Parameter(model.head.weight.detach().clone())
         for _ in range(3):
             torch.testing.assert_close(model(x), other._forward(x, None, None), rtol=0,
                                        atol=1e-6)
-    assert (model.graph_captures, model.graph_replays) == (2, 3)
+    assert (model.graphs.captures, model.graphs.replays) == (2, 3)
 
 
 def test_trainer_captures_after_the_model_served_graphed(card):
@@ -1190,18 +1190,18 @@ def test_trainer_captures_after_the_model_served_graphed(card):
     with torch.no_grad():
         for _ in range(3):
             model(x)
-    assert (model.graph_captures, model.graph_replays) == (1, 1)
+    assert (model.graphs.captures, model.graphs.replays) == (1, 1)
     got = _four_steps(tr, x, target, graphed=True)
     fresh, *_ = _tiny_trainer("su2", card)
     want = _four_steps(fresh, x, target, graphed=True)
-    assert (tr.graph_captures, tr.graph_replays) == (1, 2)
+    assert (tr.graphs.captures, tr.graphs.replays) == (1, 2)
     for (loss, fid), (loss0, fid0) in zip(got, want):
         torch.testing.assert_close(loss, loss0, rtol=1e-6, atol=0)
         torch.testing.assert_close(fid, fid0, rtol=1e-6, atol=0)
     model.eval()
     with torch.no_grad():
         torch.testing.assert_close(model(x), model._forward(x, None, None), rtol=0, atol=1e-6)
-    assert (model.graph_captures, model.graph_replays) == (1, 2)
+    assert (model.graphs.captures, model.graphs.replays) == (1, 2)
 
 
 def test_served_model_from_several_threads(card):
@@ -1217,7 +1217,7 @@ def test_served_model_from_several_threads(card):
         want = [model._forward(x, None, None) for x in xs]
         model(xs[0])
         model(xs[0])
-    assert model.graph_captures == 1
+    assert model.graphs.captures == 1
     wrong, done = [], []
 
     def serve(t):
@@ -1241,4 +1241,4 @@ def test_served_model_from_several_threads(card):
         sys.setswitchinterval(old)
     assert not any(th.is_alive() for th in threads)
     assert sorted(done) == list(range(12)) and not wrong
-    assert model.graph_replays == 12 * 40
+    assert model.graphs.replays == 12 * 40

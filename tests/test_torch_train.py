@@ -181,7 +181,7 @@ def test_cpu_step_is_the_eager_composition(debug_nans):
     assert losses == want_losses and torch.equal(gen, want_gen)
     for k, v in want_params.items():
         assert torch.equal(params[k], v), k
-    assert (tr.graph_captures, tr.graph_replays, tr.step_count) == (0, 0, 3)
+    assert (tr.graphs.captures, tr.graphs.replays, tr.step_count) == (0, 0, 3)
     for reload in (lambda: None, tr.reset_optimizer,
                    lambda: tr.load_optimizer_state(tr.optimizer_state())):
         reload()

@@ -129,7 +129,7 @@ def _tiny_trainer(mesh, inp, **cfg):
 
 def _graphs(tr):
     """The trainer's CUDA graph counters and its Adam's capturable flag."""
-    return (tr.graph_captures, tr.graph_replays,
+    return (tr.graphs.captures, tr.graphs.replays,
             [g["capturable"] for g in tr.optimizer.param_groups])
 
 

@@ -1,4 +1,4 @@
-from . import (eval_graph, grape, pipeline, score_embedding, serialization, two_qubit,  # noqa: F401
+from . import (grape, pipeline, score_embedding, serialization, two_qubit,  # noqa: F401
                universal_transformer)
 
 from .grape import GRAPE  # noqa: F401

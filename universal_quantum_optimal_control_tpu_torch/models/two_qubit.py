@@ -4,10 +4,10 @@ The target SU(4) unitary is featurized as 4 row tokens of interleaved
 (re, im) entries (:func:`unitary_tokens`), optionally with a 5th token of
 Makhlin local invariants (``kak_features``), or read as the host KAK
 featurization ``(B, 9, 8)`` of :func:`..data.su4_targets.kak_input_tokens`
-(``kak_tokens``, the shipped flagship's input).  The tokens go through the
-same post-LN encoder as the single-qubit model
-(:class:`.universal_transformer.EncoderBlock`), so the Flax numerics and
-the ``.npz`` weights carry over unchanged (:func:`.serialization.params_from_jax`).
+(``kak_tokens``, the shipped flagship's input).  The tokens go through
+the single-qubit model's trunk
+(:class:`.universal_transformer.PulseTransformer`), so the Flax numerics
+and the ``.npz`` weights carry over unchanged (:func:`.serialization.params_from_jax`).
 """
 
 from __future__ import annotations
@@ -21,11 +21,7 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
-from ..utils.tracing import span
-from .eval_graph import EvalGraphs
-from .score_embedding import sinusoidal_positional_encoding
-from .universal_transformer import (EncoderBlock, _linear, _pulse_space_json,
-                                    init_like_flax, normalize_pulse_space, wrap_angle)
+from .universal_transformer import PulseTransformer, _pulse_space_json
 
 __all__ = ["TwoQubitQOCTransformer", "unitary_tokens", "makhlin_invariants_ri"]
 
@@ -103,14 +99,16 @@ def makhlin_invariants_ri(packed_target: torch.Tensor) -> torch.Tensor:
     return torch.stack([g1_r, g1_i, g2_r], dim=-1)
 
 
-class TwoQubitQOCTransformer(nn.Module):
+class TwoQubitQOCTransformer(PulseTransformer):
     """SU(4)-target transformer pulse generator.
 
-    Numerics as :class:`.universal_transformer.UniversalQOCTransformer`:
+    Numerics as :class:`.universal_transformer.UniversalQOCTransformer`,
+    whose trunk it shares (:class:`.universal_transformer.PulseTransformer`):
     f32 parameters, the encoder computing in ``dtype`` (bf16 by default, as
     the Flax class), the head in f32; the sigmoid range map, relu(τ) and
-    the (−π, π] wrap of channel 0.  ``device=None`` builds the parameters
-    on CUDA (and raises where there is none).
+    the (−π, π] wrap of channel 0, with no φ offset; the positional encoding
+    made at each call for the tokens' count.  ``device=None`` builds the
+    parameters on CUDA (and raises where there is none).
     """
 
     def __init__(self, pulse_space=(("phi", (-3.15, 3.15)), ("tau", (0.1, 0.5))),
@@ -118,14 +116,10 @@ class TwoQubitQOCTransformer(nn.Module):
                  n_heads: int = 4, dropout: float = 0.1, num_qubits: int = 2,
                  dtype: torch.dtype = torch.bfloat16, kak_features: bool = False,
                  kak_tokens: bool = False, device=None):
-        super().__init__()
         if num_qubits != 2:
             raise ValueError(f"num_qubits={num_qubits}: this model is two-qubit")
-        dev = resolve_device(device)
-        self.pulse_space = normalize_pulse_space(pulse_space)
-        self.max_pulses = max_pulses
-        self.d_model = d_model
-        self.dtype = dtype
+        super().__init__(pulse_space, max_pulses, d_model, n_layers, n_heads, dropout,
+                         dtype, resolve_device(device))
         self.kak_features = kak_features
         self.kak_tokens = kak_tokens
         self.hparams = dict(pulse_space=_pulse_space_json(self.pulse_space),
@@ -133,63 +127,25 @@ class TwoQubitQOCTransformer(nn.Module):
                             n_heads=n_heads, dropout=dropout, num_qubits=num_qubits,
                             dtype=str(dtype), kak_features=kak_features,
                             kak_tokens=kak_tokens)
-        P = len(self.pulse_space)
-        self.unitary_proj = nn.Linear(8, d_model, device=dev)
-        self.encoder = nn.ModuleList(
-            EncoderBlock(d_model, n_heads, dropout, dev) for _ in range(n_layers))
-        self.head = nn.Linear(d_model, max_pulses * P, device=dev)
-        self.register_buffer(
-            "low", torch.tensor([lo for _, (lo, _) in self.pulse_space], device=dev),
-            persistent=False)
-        self.register_buffer(
-            "high", torch.tensor([hi for _, (_, hi) in self.pulse_space], device=dev),
-            persistent=False)
-        # the eval forward's CUDA graphs, and how many were captured and replayed
-        self.graphs = EvalGraphs()
-        self.graph_captures = 0
-        self.graph_replays = 0
 
-    @property
-    def param_dim(self) -> int:
-        return len(self.pulse_space)
-
-    def init_like_flax(self, generator: torch.Generator) -> None:
-        """Re-draw every weight from Flax's defaults (:func:`.universal_transformer.init_like_flax`)."""
-        init_like_flax(self, generator)
-
-    @span("model.forward")
     def forward(self, packed_target: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``(B, 2, 4, 4)`` packed targets (or, with ``kak_tokens``, the
         ``(B, T, 8)`` host tokens) → ``(B, max_pulses, P)`` pulses.
-        ``generator`` draws the dropout masks in train mode.  On a card, in
-        eval mode without autograd, the forward replays a CUDA graph
-        (:mod:`.eval_graph`)."""
-        return self.graphs(self, self._forward, packed_target, None, generator)
+        ``generator`` draws the dropout masks in train mode."""
+        return super().forward(packed_target, None, generator)
 
-    def _forward(self, packed_target: torch.Tensor, base: None, generator) -> torch.Tensor:
-        dtype = self.dtype
+    def _tokens(self, packed_target: torch.Tensor) -> Tuple[torch.Tensor, None]:
         if self.kak_tokens:
             tokens = packed_target.float()
             if tokens.dim() != 3 or tokens.shape[-1] != 8:
                 raise ValueError(
                     f"kak_tokens expects (B, T, 8) precomputed tokens from "
                     f"data.su4_targets.kak_input_tokens; got shape {tuple(tokens.shape)}")
-        else:
-            tokens = unitary_tokens(packed_target.float())
-            if self.kak_features:
-                feats = makhlin_invariants_ri(packed_target.float())
-                feats = nn.functional.pad(feats, (0, 8 - feats.shape[-1]))
-                tokens = torch.cat([tokens, feats[:, None, :]], dim=1)
-        x = _linear(tokens.to(dtype), self.unitary_proj, dtype)
-        pe = sinusoidal_positional_encoding(tokens.shape[-2], self.d_model, device=x.device)
-        x = x + pe.to(dtype)[None]
-        for block in self.encoder:
-            x = block(x, dtype, generator)
-
-        logits = self.head(x[:, -1, :].float())
-        pulses = self.low + (self.high - self.low) * torch.sigmoid(
-            logits.view(-1, self.max_pulses, self.param_dim))
-        tau = torch.relu(pulses[..., -1:])
-        phi = wrap_angle(pulses[..., :1])
-        return torch.cat([phi, pulses[..., 1:-1], tau], dim=-1)
+            return tokens, None
+        tokens = unitary_tokens(packed_target.float())
+        if self.kak_features:
+            feats = makhlin_invariants_ri(packed_target.float())
+            feats = nn.functional.pad(feats, (0, 8 - feats.shape[-1]))
+            tokens = torch.cat([tokens, feats[:, None, :]], dim=1)
+        return tokens, None

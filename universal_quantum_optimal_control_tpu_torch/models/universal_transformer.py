@@ -30,13 +30,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.graphs import GraphCache
 from ..utils.device import resolve_device
 from ..utils.tracing import span
-from .eval_graph import EvalGraphs
 from .score_embedding import score_features, sinusoidal_positional_encoding
 
-__all__ = ["UniversalQOCTransformer", "EncoderBlock", "RowDraws", "init_like_flax",
-           "normalize_pulse_space", "wrap_angle"]
+__all__ = ["UniversalQOCTransformer", "PulseTransformer", "EncoderBlock", "RowDraws",
+           "init_like_flax", "normalize_pulse_space", "wrap_angle"]
 
 PulseSpace = Tuple[Tuple[str, Tuple[float, float]], ...]
 
@@ -181,8 +181,145 @@ class EncoderBlock(nn.Module):
         return self.ln2((x + h).float()).to(dtype)
 
 
-class UniversalQOCTransformer(nn.Module):
-    """SCORE-embedding transformer pulse generator.
+class PulseTransformer(nn.Module):
+    """The trunk of both pulse models: token projection (``unitary_proj``),
+    positional encoding, the post-LN ``encoder`` blocks and the f32 ``head``
+    on the last token, then the sigmoid range map into ``[low, high]``, the
+    ``finetune`` blend, relu(τ), the φ offset and the (−π, π] wrap.  A
+    subclass supplies its tokens and φ offset (:meth:`_tokens`) and, where
+    it keeps one, its positional encoding (:meth:`_positional`).
+
+    On a card, in eval mode without autograd, the forward replays a CUDA
+    graph (:class:`..ops.graphs.GraphCache`, ``graphs``) where all of these
+    hold: the parameters and the input lie on one card, autograd, anomaly
+    mode and autocast are off, the current stream is not capturing (the
+    trainer's own capture runs the forward with autograd on) and no dropout
+    generator is passed; every other call runs eagerly.  The graphs are kept
+    by the input's shape, dtype and device, by whether inference mode is on
+    and by the ``base_pulse`` tensor's storage (read in place); all read the
+    parameters and buffers where they lie, so ``load_state_dict``, which
+    copies into the same storage, keeps them, and a parameter or buffer
+    given new storage drops them all.
+    """
+
+    finetune = False
+
+    def __init__(self, pulse_space, max_pulses: int, d_model: int, n_layers: int,
+                 n_heads: int, dropout: float, dtype: torch.dtype, device: torch.device):
+        super().__init__()
+        self.pulse_space = normalize_pulse_space(pulse_space)
+        self.max_pulses = max_pulses
+        self.d_model = d_model
+        self.dtype = dtype
+        P = len(self.pulse_space)
+        self.unitary_proj = nn.Linear(8, d_model, device=device)
+        self.encoder = nn.ModuleList(
+            EncoderBlock(d_model, n_heads, dropout, device) for _ in range(n_layers))
+        self.head = nn.Linear(d_model, max_pulses * P, device=device)
+        self.register_buffer(
+            "low", torch.tensor([lo for _, (lo, _) in self.pulse_space], device=device),
+            persistent=False)
+        self.register_buffer(
+            "high", torch.tensor([hi for _, (_, hi) in self.pulse_space], device=device),
+            persistent=False)
+        self.graphs = GraphCache("model.graph_replay")
+        self._graph_storage: Optional[tuple] = None    # the storage the graphs read
+
+    @property
+    def param_dim(self) -> int:
+        return len(self.pulse_space)
+
+    def init_like_flax(self, generator: torch.Generator) -> None:
+        """Re-draw every weight from Flax's defaults (:func:`init_like_flax`)."""
+        init_like_flax(self, generator)
+
+    def _tokens(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The ``(B, T, 8)`` f32 tokens of input ``x`` and the per-row φ
+        offset (None: no offset)."""
+        raise NotImplementedError
+
+    def _positional(self, n: int, device: torch.device) -> torch.Tensor:
+        """The ``(n, d_model)`` positional encoding of ``n`` tokens."""
+        return sinusoidal_positional_encoding(n, self.d_model, device=device)
+
+    @staticmethod
+    def on_card(module: nn.Module, x: torch.Tensor) -> bool:
+        """Whether ``x`` and the parameters of ``module`` lie on one card."""
+        p = next(module.parameters(), None)
+        return p is not None and x.is_cuda and p.device == x.device
+
+    def graphable(self, x: torch.Tensor, generator) -> bool:
+        """Whether the call ``self(x)`` takes the graph."""
+        return (generator is None and not self.training and not torch.is_grad_enabled()
+                and self.on_card(self, x) and not torch.is_anomaly_enabled()
+                and not torch.is_autocast_enabled("cuda")
+                and not torch.cuda.is_current_stream_capturing())
+
+    @staticmethod
+    def storage(module: nn.Module) -> tuple:
+        """The addresses of the parameters and buffers that a graph reads,
+        read from the modules' own tables (``module.parameters()`` takes
+        several times as long, on every call)."""
+        ptrs, stack = [], [module]
+        while stack:
+            m = stack.pop()
+            ptrs += [t.data_ptr() for t in (*m._parameters.values(), *m._buffers.values())
+                     if t is not None]
+            stack += [c for c in m._modules.values() if c is not None]
+        return tuple(ptrs)
+
+    @staticmethod
+    def key(x: torch.Tensor, base: Optional[torch.Tensor]) -> tuple:
+        """The graph's key of input ``x`` with ``base``."""
+        return (tuple(x.shape), x.dtype, x.device, torch.is_inference_mode_enabled(),
+                None if base is None else (base.data_ptr(), tuple(base.shape),
+                                           tuple(base.stride()), base.dtype))
+
+    @span("model.forward")
+    def forward(self, x: torch.Tensor, base_pulse: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Inputs ``x`` (``(B, 4)`` rotation vectors for the single-qubit
+        model) → ``(B, max_pulses, P)`` pulses.  ``generator`` (or a
+        :class:`RowDraws`) draws the dropout masks in train mode."""
+        if not self.graphable(x, generator):
+            return self._forward(x, base_pulse, generator)
+        storage = self.storage(self)
+        if storage != self._graph_storage:
+            self.graphs.clear()
+            self._graph_storage = storage
+
+        def run(t: torch.Tensor) -> torch.Tensor:
+            return self._forward(t, base_pulse, None)
+        return self.graphs(self.key(x, base_pulse), (x,), run, run)
+
+    def _forward(self, x: torch.Tensor, base_pulse: Optional[torch.Tensor],
+                 generator) -> torch.Tensor:
+        dtype = self.dtype
+        tokens, phi_offset = self._tokens(x)
+        h = _linear(tokens.to(dtype), self.unitary_proj, dtype)
+        h = h + self._positional(tokens.shape[-2], h.device).to(dtype)[None]
+        for block in self.encoder:
+            h = block(h, dtype, generator)
+
+        logits = self.head(h[:, -1, :].float())
+        pulses = self.low + (self.high - self.low) * torch.sigmoid(
+            logits.view(-1, self.max_pulses, self.param_dim))
+        if self.finetune:
+            if base_pulse is None:
+                raise ValueError("finetune=True requires an explicit base_pulse")
+            pulses = 0.2 * pulses + base_pulse
+
+        tau = torch.relu(pulses[..., -1:])
+        phi = pulses[..., :1]
+        if phi_offset is not None:
+            phi = phi + phi_offset[:, None, None]
+        return torch.cat([wrap_angle(phi), pulses[..., 1:-1], tau], dim=-1)
+
+
+class UniversalQOCTransformer(PulseTransformer):
+    """SCORE-embedding transformer pulse generator: the 9 SCORE tokens of a
+    rotation vector, a fixed 9-token positional encoding (``pe``) and the φ
+    offset of the SCORE sequence.
 
     ``n_layers=None`` means ``4 * max_pulses``.  ``device=None`` builds the
     parameters on CUDA (and raises where there is none).
@@ -195,76 +332,25 @@ class UniversalQOCTransformer(nn.Module):
                  dropout: float = 0.1, finetune: bool = False,
                  middle_convention: str = "angle",
                  dtype: torch.dtype = torch.bfloat16, device=None):
-        super().__init__()
         if num_qubits != 1:
             raise ValueError(f"num_qubits={num_qubits}: this model is single-qubit")
         dev = resolve_device(device)
-        self.pulse_space = normalize_pulse_space(pulse_space)
-        self.max_pulses = max_pulses
+        n_layers = n_layers if n_layers is not None else 4 * max_pulses
+        super().__init__(pulse_space, max_pulses, d_model, n_layers, n_heads, dropout,
+                         dtype, dev)
         self.finetune = bool(finetune)
         self.middle_convention = middle_convention
-        self.dtype = dtype
-        n_layers = n_layers if n_layers is not None else 4 * max_pulses
         # the constructor's arguments as JSON, for checkpoints and exports
         self.hparams = dict(num_qubits=num_qubits, pulse_space=_pulse_space_json(self.pulse_space),
                             max_pulses=max_pulses, d_model=d_model, n_layers=n_layers,
                             n_heads=n_heads, dropout=dropout, finetune=self.finetune,
                             middle_convention=middle_convention, dtype=str(dtype))
-        P = len(self.pulse_space)
-        self.unitary_proj = nn.Linear(8, d_model, device=dev)
-        self.encoder = nn.ModuleList(
-            EncoderBlock(d_model, n_heads, dropout, dev) for _ in range(n_layers))
-        self.head = nn.Linear(d_model, max_pulses * P, device=dev)
         self.register_buffer(
             "pe", sinusoidal_positional_encoding(9, d_model, device=dev),
             persistent=False)
-        self.register_buffer(
-            "low", torch.tensor([lo for _, (lo, _) in self.pulse_space], device=dev),
-            persistent=False)
-        self.register_buffer(
-            "high", torch.tensor([hi for _, (_, hi) in self.pulse_space], device=dev),
-            persistent=False)
-        # the eval forward's CUDA graphs, and how many were captured and replayed
-        self.graphs = EvalGraphs()
-        self.graph_captures = 0
-        self.graph_replays = 0
 
-    @property
-    def param_dim(self) -> int:
-        return len(self.pulse_space)
+    def _tokens(self, rotation_vector: torch.Tensor):
+        return score_features(rotation_vector.float(), self.middle_convention)
 
-    def init_like_flax(self, generator: torch.Generator) -> None:
-        """Re-draw every weight from Flax's defaults (:func:`init_like_flax`)."""
-        init_like_flax(self, generator)
-
-    @span("model.forward")
-    def forward(self, rotation_vector: torch.Tensor,
-                base_pulse: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``(B, 4)`` rotation vectors → ``(B, max_pulses, P)`` pulses.
-        ``generator`` (or a :class:`RowDraws`) draws the dropout masks in
-        train mode.  On a card, in eval mode without autograd, the forward
-        replays a CUDA graph (:mod:`.eval_graph`)."""
-        return self.graphs(self, self._forward, rotation_vector, base_pulse, generator)
-
-    def _forward(self, rotation_vector: torch.Tensor, base_pulse: Optional[torch.Tensor],
-                 generator) -> torch.Tensor:
-        dtype = self.dtype
-        tokens, phi_offset = score_features(rotation_vector.float(),
-                                            self.middle_convention)
-        x = _linear(tokens.to(dtype), self.unitary_proj, dtype)
-        x = x + self.pe.to(dtype)[None]
-        for block in self.encoder:
-            x = block(x, dtype, generator)
-
-        logits = self.head(x[:, -1, :].float())
-        pulses = self.low + (self.high - self.low) * torch.sigmoid(
-            logits.view(-1, self.max_pulses, self.param_dim))
-        if self.finetune:
-            if base_pulse is None:
-                raise ValueError("finetune=True requires an explicit base_pulse")
-            pulses = 0.2 * pulses + base_pulse
-
-        tau = torch.relu(pulses[..., -1:])
-        phi = wrap_angle(pulses[..., :1] + phi_offset[:, None, None])
-        return torch.cat([phi, pulses[..., 1:-1], tau], dim=-1)
+    def _positional(self, n: int, device: torch.device) -> torch.Tensor:
+        return self.pe

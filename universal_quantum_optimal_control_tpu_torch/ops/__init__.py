@@ -20,9 +20,8 @@ from .propagate_su4 import (  # noqa: F401
 )
 
 # The wrappers that count their kernel launches in ``.launches``.  A launch
-# captured in a CUDA graph counts where the graph replays
-# (:meth:`..training.trainer.Trainer.train_step` adds a graph's counts at
-# each replay).
+# captured in a CUDA graph counts where the graph runs (:mod:`.graphs`
+# moves a capture's counts to each run of its graph).
 COUNTED = (mean_fidelity_cuda, propagate_mc_cuda, propagate_mc_vjp_cuda,
            mean_fidelity_su4_cuda, mean_fidelity_su4_with_product_cuda,
            propagate_su4_mc_cuda, su4_objective_vjp_cuda,

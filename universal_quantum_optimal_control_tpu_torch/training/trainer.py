@@ -30,14 +30,14 @@ sync inside an epoch, losses stay on the device and are read once per
 epoch.  ``False`` reads each step's loss.
 
 The counterpart of the jitted step is one CUDA graph a step
-(:meth:`Trainer.train_step`): forward, backward, clip and Adam captured
-once and replayed, so the host issues one launch where the eager step
-issues some two thousand.  It engages wherever capture is safe: on a card,
-on one process (gloo's all-reduce cannot be captured) and outside anomaly
-mode; elsewhere the step runs eagerly, with the Adam it always had.  A
-graphed step's Adam is PyTorch's fused one, ``capturable``, its learning
-rate a device scalar that the host writes before each step (the schedule
-stays on the host).
+(:meth:`Trainer.train_step`, through :class:`..ops.graphs.GraphCache`):
+forward, backward, clip and Adam captured once and replayed, so the host
+issues one launch where the eager step issues some two thousand.  It
+engages wherever capture is safe: on a card, on one process (gloo's
+all-reduce cannot be captured) and outside anomaly mode; elsewhere the
+step runs eagerly, with the Adam it always had.  A graphed step's Adam is
+PyTorch's fused one, ``capturable``, its learning rate a device scalar
+that the host writes before each step (the schedule stays on the host).
 
 On a ``(data, mc)`` mesh (:mod:`..parallel.mesh`) every rank runs the same
 loop on the same global batches and gives the unsharded run's numbers:
@@ -72,7 +72,7 @@ import torch
 
 from ..core import objectives
 from ..models.universal_transformer import RowDraws
-from ..ops import COUNTED
+from ..ops.graphs import GraphCache
 from ..parallel.mesh import DATA_AXIS, MC_AXIS, Mesh, shard_spec
 from ..utils.device import resolve_device
 from ..utils.tracing import span
@@ -169,20 +169,6 @@ def _snapshot(model: torch.nn.Module) -> StateDict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-@dataclasses.dataclass(frozen=True)
-class _StepGraph:
-    """One captured optimizer step: the graph, the static inputs it reads
-    (``rv``, ``q_target``, then each disorder channel), the static ``loss``
-    and ``mean_fid`` it writes, and the kernel launches it holds (each
-    counting wrapper of :data:`..ops.COUNTED` with its count)."""
-
-    graph: Any
-    inputs: Tuple[torch.Tensor, ...]
-    loss: torch.Tensor
-    mean_fid: torch.Tensor
-    launches: Tuple[Tuple[Any, int], ...]
-
-
 class Trainer:
     """Curriculum trainer over disorder bands.
 
@@ -198,9 +184,9 @@ class Trainer:
       device: ``None`` → CUDA (raising where there is none); ``"cpu"`` runs
         the plain versions.
 
-    ``graph_captures`` and ``graph_replays`` count the steps that captured
-    a CUDA graph and the steps that replayed one captured at an earlier
-    step (both stay 0 where the step runs eagerly).
+    ``graphs.captures`` and ``graphs.replays`` count the steps that
+    captured a CUDA graph and the steps that replayed one captured at an
+    earlier step (both stay 0 where the step runs eagerly).
     """
 
     def __init__(self, model: torch.nn.Module, config: TrainConfig = TrainConfig(),
@@ -237,9 +223,7 @@ class Trainer:
         # a step is one CUDA graph where capture is safe: on a card, on one
         # process, outside anomaly mode
         self._graphed = self.device.type == "cuda" and mesh is None and not config.debug_nans
-        self._side = torch.cuda.Stream(self.device) if self._graphed else None
-        self.graph_captures = 0
-        self.graph_replays = 0
+        self.graphs = GraphCache("trainer.graph_replay")
         self.reset_optimizer()
 
     # ------------------------------------------------------------------
@@ -259,7 +243,7 @@ class Trainer:
             self.model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
             capturable=self._graphed, fused=self._graphed or None)
         self.step_count = 0
-        self._graphs: Dict[tuple, Optional[_StepGraph]] = {}
+        self.graphs.clear()
 
     def optimizer_state(self) -> Dict[str, Any]:
         return {"adam": self.optimizer.state_dict(), "step": self.step_count}
@@ -403,41 +387,33 @@ class Trainer:
         ``(loss, mean E[F])`` as device tensors (no host sync).
 
         Where the step is graphed, its graphs are kept by the shapes and
-        dtypes of the inputs and by ``dropout``.  The first step with a new
-        key runs eagerly on the stream that will capture (the warm-up, which
-        also creates Adam's state); the second captures the step there and
-        runs the graph once; every later one copies its inputs into the
-        graph's and replays it.  The graph draws its dropout masks from the
+        dtypes of the inputs and by ``dropout``: the first step with a new
+        key is the eager step (the warm-up, which also creates Adam's
+        state), the second captures :meth:`_graphed_step` and runs it, every
+        later one replays it.  The graph draws its dropout masks from the
         trainer's generator, where the eager step would: the same bits, and
         the generator left where the eager step leaves it."""
         if not self._graphed:
             return self._eager_step(rv, q_target, errors, dropout)
         inputs = (rv, q_target, *errors)
         key = (dropout,) + tuple((tuple(t.shape), t.dtype) for t in inputs)
-        if key not in self._graphs:
-            self._graphs[key] = None
-            current = torch.cuda.current_stream(self.device)
-            self._side.wait_stream(current)
-            with torch.cuda.stream(self._side):
-                out = self._eager_step(rv, q_target, errors, dropout)
-            current.wait_stream(self._side)
-            return out
-        step = self._graphs[key]
-        if step is None:
-            step = self._graphs[key] = self._capture(inputs, dropout)
-            self.graph_captures += 1
-            return self._replay(step, inputs, dropout)
-        with span("trainer.graph_replay"):
-            out = self._replay(step, inputs, dropout)
-        self.graph_replays += 1
-        return out
 
-    def _capture(self, inputs: Tuple[torch.Tensor, ...], dropout: bool) -> _StepGraph:
-        """Capture one step (forward, backward, clip, Adam) on the side
-        stream, reading static buffers shaped as ``inputs``; it runs nothing
-        (:meth:`_replay` fills the buffers and runs it)."""
-        static = tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
-                       for t in inputs)
+        def before_run() -> None:
+            self.model.train(dropout)
+            self._schedule_learning_rate()
+            self.step_count += 1
+        return self.graphs(key, inputs,
+                           lambda rv, q, *e: self._eager_step(rv, q, e, dropout),
+                           lambda rv, q, *e: self._graphed_step(rv, q, e, dropout),
+                           before_run, (self.generator,))
+
+    def _graphed_step(self, rv: torch.Tensor, q_target: torch.Tensor, errors,
+                      dropout: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The step a graph captures: forward, backward, clip and Adam at
+        the learning rate in Adam's device scalar, which the host writes
+        before each run (not :meth:`apply_gradients`, whose write would be
+        captured)."""
+        self.optimizer.zero_grad(set_to_none=True)   # the warm-up's: the graph has its own
         params = {n: p for n, p in self.model.named_parameters() if p.requires_grad}
         # the graph differentiates fresh leaves on the parameters' storage:
         # a parameter's own gradient node, kept alive by an autograd graph
@@ -445,40 +421,16 @@ class Trainer:
         # stream of that backward, and a capture may not wait on the
         # default stream
         leaves = {n: p.detach().requires_grad_() for n, p in params.items()}
-        self.optimizer.zero_grad(set_to_none=True)   # the warm-up's, freed before the graph's
-        counts = [f.launches for f in COUNTED]
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph, stream=self._side):
-            loss, mean_fid = self.objective(static[0], static[1], static[2:], dropout,
-                                            params=leaves)
-            with span("trainer.backward", backward=True):
-                grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-            # the graph's own gradients, which every replay rewrites
-            for p, g in zip(params.values(), grads):
-                p.grad = g
-            with span("trainer.optimizer"):
-                self._clip_grads()
-                self.optimizer.step()
-        # a capture launches nothing: the wrappers' counts move to the replays
-        launches = tuple((f, f.launches - n) for f, n in zip(COUNTED, counts)
-                         if f.launches != n)
-        for f, n in launches:
-            f.launches -= n
-        return _StepGraph(graph, static, loss.detach(), mean_fid.detach(), launches)
-
-    def _replay(self, step: _StepGraph, inputs: Tuple[torch.Tensor, ...],
-                dropout: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-        for dst, src in zip(step.inputs, inputs):
-            dst.copy_(src)
-        self.model.train(dropout)
-        self._schedule_learning_rate()
-        step.graph.replay()
-        for f, n in step.launches:
-            f.launches += n
-        self.step_count += 1
-        # copies: the next replay overwrites the static outputs
-        return step.loss.clone(), step.mean_fid.clone()
+        loss, mean_fid = self.objective(rv, q_target, errors, dropout, params=leaves)
+        with span("trainer.backward", backward=True):
+            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        # the graph's own gradients, which every replay rewrites
+        for p, g in zip(params.values(), grads):
+            p.grad = g
+        with span("trainer.optimizer"):
+            self._clip_grads()
+            self.optimizer.step()
+        return loss, mean_fid
 
     def _eager_step(self, rv: torch.Tensor, q_target: torch.Tensor, errors,
                     dropout: bool) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -23,13 +23,16 @@ The spans of the port, and the layer each times:
 ``trainer.step``               ``Trainer.train_step``: one optimizer step
 ``trainer.backward``           ``loss.backward()`` inside the step
 ``trainer.optimizer``          ``Trainer.apply_gradients``: clip, then Adam
-``trainer.graph_replay``       a step that replays its CUDA graph: the
-                               inputs' copies and the replay, inside which
-                               no other span opens (no Python runs there)
+``trainer.graph_replay``       a step that replays its CUDA graph, opened
+                               by the shared cache (``ops/graphs.py``): the
+                               inputs' copies, the learning rate's write,
+                               the replay, inside which no other span
+                               opens (no Python runs there), and the
+                               outputs' copies
 ``model.forward``              the pulse models' ``forward``
-``model.graph_replay``         a forward that replays its CUDA graph
-                               (``models/eval_graph.py``): the input's
-                               copy, the replay and the output's copy
+``model.graph_replay``         a forward that replays its CUDA graph, opened
+                               by the same cache: the input's copy, the
+                               replay and the output's copy
 ``mc.mean_fidelity``           the Monte-Carlo objective's forward, either
                                backend
 ``mc.mean_fidelity.backward``  the kernels' backward (B3 + B2, or B5)
