@@ -47,6 +47,12 @@ the ``finetune`` blend, the two-qubit model on KAK tokens), an in-place
 trainer's step graph after the model served graphed, and one model served
 from twelve threads at once.
 
+The single-qubit figures as CUDA graphs (``analysis/plots.py``): at the
+demo's sizes, the grid, the sweep and the estimate warm up, capture and
+replay, one B3 launch a call, every answer the eager path's bit for bit on
+two tables and on one table replayed twice (the seed-0 draws repeat), and a
+caller's generator runs eagerly and advances as before.
+
 The trainer's clip at the flagship's 132 leaves: a handful of kernels in a
 CUDA graph, whatever the number of leaves, and the eager clip's bits.
 
@@ -813,6 +819,96 @@ def test_bloch_endpoints_at_b3s_product(card, P):
                                 r0)[:, -1].cpu()
     tol = max(TOL, 2 * float((torch.as_tensor(traj[:, -1]).double() - end64).abs().max()))
     assert float((torch.as_tensor(traj[:, -1]) - end).abs().max()) <= tol
+
+
+@pytest.fixture
+def figures(monkeypatch):
+    """``analysis/plots.py`` with its figures' graph cache and generators
+    new for the test."""
+    from universal_quantum_optimal_control_tpu_torch.analysis import plots
+    from universal_quantum_optimal_control_tpu_torch.ops import graphs
+
+    monkeypatch.setattr(plots, "_GRAPHS", graphs.GraphCache("plots.graph_replay"))
+    monkeypatch.setattr(plots, "_DRAWS", {})
+    return plots
+
+
+def _demo_figure(plots, figure, table, q, dev, **kw):
+    """One figure call at the demo's sizes (the 1000 × 50 grid, 199 σ ×
+    10 000, the estimate's 10 000), its numbers as host tensors."""
+    if figure == "grid":
+        out = plots.fidelity_grid(table, q, device=dev)
+    elif figure == "sweep":
+        out = plots.fidelity_by_std(table, q, device=dev, **kw)
+    else:
+        out = plots.mc_fidelity_estimate(table, q, 1.0, 0.05, 10000, device=dev, **kw)
+    return tuple(torch.as_tensor(x, dtype=torch.float32) for x in out)
+
+
+def _demo_tables(n):
+    g = torch.Generator().manual_seed(11)
+    tables = [torch.stack([6.0 * torch.rand(100, generator=g) - 3.0,
+                           0.1 + 0.4 * torch.rand(100, generator=g)], dim=-1).numpy()
+              for _ in range(n)]
+    q = torch.nn.functional.normalize(torch.randn(4, generator=g), dim=0).numpy()
+    return tables, q
+
+
+@pytest.mark.parametrize("figure", ["grid", "sweep", "estimate"])
+def test_figures_replay_the_eager_bits(card, figures, monkeypatch, figure):
+    """Five calls on two host tables (A, B, A, A, B): a warm-up, a capture
+    and three replays, one B3 launch each, every answer the eager path's bit
+    for bit (the seed-0 draws repeat on every replay), and for the draws a
+    caller's own seed-0 generator's too."""
+    (a, b), q = _demo_tables(2)
+    order = [a, b, a, a, b]
+    tk.propagate_mc_cuda.launches = 0
+    got, launches = [], []
+    for t in order:
+        got.append(_demo_figure(figures, figure, t, q, card))
+        launches.append(tk.propagate_mc_cuda.launches)
+    assert (figures._GRAPHS.captures, figures._GRAPHS.replays) == (1, 3)
+    assert launches == [1, 2, 3, 4, 5]
+    for x, y in zip(got[0], got[2]):
+        assert torch.equal(x, y)
+    monkeypatch.setattr(figures, "_on_card", lambda dev: False)
+    for t, g in zip(order, got):
+        wants = [_demo_figure(figures, figure, t, q, card)]
+        if figure != "grid":
+            wants.append(_demo_figure(figures, figure, t, q, card,
+                                      generator=torch.Generator(card).manual_seed(0)))
+        for want in wants:
+            for x, y in zip(g, want):
+                assert torch.equal(x, y)
+    assert (figures._GRAPHS.captures, figures._GRAPHS.replays) == (1, 3)
+
+
+@pytest.mark.parametrize("figure", ["sweep", "estimate"])
+def test_figures_with_a_callers_generator_advance_its_stream(card, figures, figure):
+    """With the default key's graph captured, a call with the caller's
+    generator runs eagerly: its draws, and where it leaves the generator,
+    are the parent's eager call's."""
+    from universal_quantum_optimal_control_tpu_torch.core.errors import sample_ore_ple
+
+    (a,), q = _demo_tables(1)
+    for _ in range(3):
+        _demo_figure(figures, figure, a, q, card)
+    counts = (figures._GRAPHS.captures, figures._GRAPHS.replays)
+    gen, ref = torch.Generator(card).manual_seed(7), torch.Generator(card).manual_seed(7)
+    got = _demo_figure(figures, figure, a, q, card, generator=gen)
+    p = torch.as_tensor(a, device=card)
+    qt = torch.as_tensor(q, device=card)
+    if figure == "sweep":
+        st = torch.as_tensor(got[0], device=card)
+        nd, ne = figures._sweep_draws(ref, st.shape[0], 10000, 0.05)
+        want = (st, *figures._sweep_fid(p, qt, nd, ne, st))
+    else:
+        d, e = sample_ore_ple(ref, (10000,), 1.0, 0.05)
+        want = figures._mc_stats(p, qt, d, e)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y.reshape(x.shape).cpu())
+    assert torch.equal(gen.get_state(), ref.get_state())
+    assert (figures._GRAPHS.captures, figures._GRAPHS.replays) == counts
 
 
 def _tiny_trainer(family, dev, backend="pallas", **cfg):

@@ -13,18 +13,35 @@ the F(δ, ε) grid (1000 × 50 samples), the estimate, and the whole sweep
 where the JAX package maps over σ to fit a TPU's memory).  On CPU tensors
 the kernel's plain version runs.  The numeric functions need no
 matplotlib; the drawing functions import it when called.
+
+Each of :func:`fidelity_grid`, :func:`fidelity_by_std` and
+:func:`mc_fidelity_estimate` computes its numbers into one packed f32
+vector on the device and brings it to the host in one download.  On a card,
+with the default seed-0 draws and no other capture under way, that
+computation is a CUDA graph for each key (the function, the sizes and
+scalars that fix the graph's shapes and constants, the inputs' shapes,
+inference mode and the card),
+kept in :data:`_GRAPHS` (``ops/graphs.py``): the first call of a key runs
+eagerly, the second captures, later calls copy the pulses and the target
+(and the sweep's σ values) in and replay under the span
+``plots.graph_replay``.  A graph draws from its card's generator in
+:data:`_DRAWS`, set back to seed 0 before each run, so every call draws
+the seed-0 stream that the eager call draws from a new generator, and the
+numbers are the eager call's bit for bit.  Every other call (the CPU, a
+caller's generator, inside another capture) runs eagerly.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core import su2
 from ..core.errors import sample_ore_ple
+from ..ops.graphs import GraphCache
 from ..ops.propagate_su2 import propagate_mc_cuda
 from ..utils.device import resolve_device
 from ..utils.tracing import span
@@ -44,6 +61,10 @@ __all__ = [
 
 CONTOUR_LEVELS = [0.8, 0.9, 0.95, 0.99, 0.999, 1.0]
 LINE_LEVELS = [0.95, 0.99, 0.999]
+
+# the figures' CUDA graphs, and the generator each card's graphs draw from
+_GRAPHS = GraphCache("plots.graph_replay")
+_DRAWS: Dict[torch.device, torch.Generator] = {}
 
 
 def _pyplot():
@@ -90,6 +111,48 @@ def _mc_stats(pulses: torch.Tensor, q_target: torch.Tensor,
     return _mean_se(_fidelities(pulses, q_target, delta, eps))
 
 
+def _on_card(dev: torch.device) -> bool:
+    return dev.type == "cuda"
+
+
+def _graphed(dev: torch.device, generator: Optional[torch.Generator]) -> bool:
+    """Whether a figure's call on ``dev`` with ``generator`` takes its graph."""
+    return (_on_card(dev) and generator is None
+            and not torch.cuda.is_current_stream_capturing())
+
+
+def _packed(key: tuple, inputs: Tuple[torch.Tensor, ...], body: Callable, dev: torch.device,
+            generator: Optional[torch.Generator] = None, draws: bool = False) -> np.ndarray:
+    """``body(generator, *inputs)``, one f32 vector, on the host.
+
+    ``key`` holds the sizes and scalars ``body`` bakes in; ``draws`` says
+    whether it draws from ``generator`` (``None``: a new one seeded with 0).
+    Where :func:`_graphed`, ``body`` runs as its CUDA graph (see the
+    module's docstring), else eagerly.
+    """
+    with torch.no_grad():
+        if not _graphed(dev, generator):
+            if draws and generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            return body(generator, *inputs).cpu().numpy()
+        card = inputs[0].device
+        key += (tuple(t.shape for t in inputs), torch.is_inference_mode_enabled(), card)
+        gen = _DRAWS.get(card)
+        if gen is None:
+            gen = _DRAWS.setdefault(card, torch.Generator(device=card))
+
+        def run(*t):
+            return body(gen, *t)
+
+        if not draws:
+            out = _GRAPHS(key, inputs, run, run)
+        else:
+            def seed0():
+                return gen.manual_seed(0)
+            out = _GRAPHS(key, inputs, lambda *t: body(seed0(), *t), run, seed0, (gen,))
+    return out.cpu().numpy()
+
+
 @span("plots.mc_fidelity_estimate")
 def mc_fidelity_estimate(pulses, u_target, delta_std: float = 1.0,
                          epsilon_std: float = 0.05, monte_carlo: int = 10000,
@@ -102,12 +165,14 @@ def mc_fidelity_estimate(pulses, u_target, delta_std: float = 1.0,
     explicit draws.
     """
     dev = resolve_device(device)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    delta, eps = sample_ore_ple(generator, (monte_carlo,), delta_std, epsilon_std)
-    with torch.no_grad():
-        mean, se = _mc_stats(_as_pulses(pulses, dev), _as_target_quat(u_target, dev),
-                             delta, eps)
+
+    def body(gen, p, q):
+        delta, eps = sample_ore_ple(gen, (monte_carlo,), delta_std, epsilon_std)
+        return torch.stack(_mc_stats(p, q, delta, eps))
+
+    mean, se = _packed(("estimate", int(monte_carlo), float(delta_std), float(epsilon_std)),
+                       (_as_pulses(pulses, dev), _as_target_quat(u_target, dev)), body, dev,
+                       generator, draws=True)
     return float(mean), float(se)
 
 
@@ -127,11 +192,18 @@ def fidelity_grid(pulses, u_target,
     """Deterministic F(δ, ε) surface: ``(delta_grid, eps_grid, F)`` in numpy,
     ``F`` of shape ``(n_delta, n_eps)``."""
     dev = resolve_device(device)
-    dg = torch.linspace(*delta_range, n_delta, dtype=torch.float32, device=dev)
-    eg = torch.linspace(*eps_range, n_eps, dtype=torch.float32, device=dev)
-    with torch.no_grad():
-        F = _grid_fid(_as_pulses(pulses, dev), _as_target_quat(u_target, dev), dg, eg)
-    return dg.cpu().numpy(), eg.cpu().numpy(), F.cpu().numpy()
+    delta_range, eps_range = tuple(map(float, delta_range)), tuple(map(float, eps_range))
+    n_delta, n_eps = int(n_delta), int(n_eps)
+
+    def body(_, p, q):
+        dg = torch.linspace(*delta_range, n_delta, dtype=torch.float32, device=p.device)
+        eg = torch.linspace(*eps_range, n_eps, dtype=torch.float32, device=p.device)
+        return torch.cat([dg, eg, _grid_fid(p, q, dg, eg).reshape(-1)])
+
+    out = _packed(("grid", delta_range, eps_range, n_delta, n_eps),
+                  (_as_pulses(pulses, dev), _as_target_quat(u_target, dev)), body, dev)
+    return (out[:n_delta], out[n_delta:n_delta + n_eps],
+            out[n_delta + n_eps:].reshape(n_delta, n_eps))
 
 
 def fidelity_contour_plot(pulses, u_target, save_path: Optional[str] = None,
@@ -192,13 +264,16 @@ def fidelity_by_std(pulses, u_target, stds: Optional[Sequence[float]] = None,
     dev = resolve_device(device)
     stds_t = torch.as_tensor(np.arange(0.01, 2.0, 0.01) if stds is None else stds,
                              dtype=torch.float32, device=dev)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    nd, ne = _sweep_draws(generator, stds_t.shape[0], monte_carlo, epsilon_std)
-    with torch.no_grad():
-        mean, se = _sweep_fid(_as_pulses(pulses, dev), _as_target_quat(u_target, dev),
-                              nd, ne, stds_t)
-    return stds_t.cpu().numpy(), mean.cpu().numpy(), se.cpu().numpy()
+    S = stds_t.shape[0]
+
+    def body(gen, p, q, st):
+        nd, ne = _sweep_draws(gen, S, monte_carlo, epsilon_std)
+        return torch.cat([st, *_sweep_fid(p, q, nd, ne, st)])
+
+    out = _packed(("sweep", int(monte_carlo), float(epsilon_std)),
+                  (_as_pulses(pulses, dev), _as_target_quat(u_target, dev), stds_t), body, dev,
+                  generator, draws=True)
+    return out[:S], out[S:2 * S], out[2 * S:]
 
 
 def plot_fidelity_by_std(pulses, u_target, save_prefix: Optional[str] = None,

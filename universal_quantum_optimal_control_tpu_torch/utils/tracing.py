@@ -39,6 +39,11 @@ The spans of the port, and the layer each times:
 ``plots.fidelity_grid``,       the figures' numbers
 ``plots.fidelity_by_std``,
 ``plots.mc_fidelity_estimate``
+``plots.graph_replay``         a figure call that replays its CUDA graph,
+                               opened by the same cache inside the
+                               figure's span: the inputs' copies, the
+                               draws' reseed, the replay and the output's
+                               copy
 =============================  =============================================
 
 Spans opened inside a backward that runs on autograd's device thread,
